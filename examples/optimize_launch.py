@@ -14,28 +14,24 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-import os
-
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
 
-import jax.numpy as jnp
+import jax.numpy as jnp  # noqa: E402
 
-from graph_framework_tpu.models import make_efit, dispersion as disp
-from graph_framework_tpu.solver import Solver, make_ray_state, init_k
+from graph_framework_tpu.models import make_efit, dispersion as disp  # noqa
+from graph_framework_tpu.solver import (  # noqa: E402
+    Solver, make_ray_state, init_k)
+from graph_framework_tpu.tools.make_splines import tokamak_tables  # noqa
 
-EFIT = "/root/reference/graph_tests/efit.nc"
-# the endpoint of the (ky, kz) = (45, 60) launch: exactly reachable, so the
-# optimizer (starting from (30, 30)) should drive the miss to ~0
-TARGET = jnp.asarray([2.0438, 0.0485, 0.0602])
+# the generated DIII-D-sized tokamak (an EFIT file's path works as well)
+EQ = make_efit(tokamak_tables())
 
 
 def trace_endpoint(ky, kz):
     """Launch one ray with free (ky, kz); kx Newton-solved onto D = 0."""
-    eq = make_efit(EFIT)
+    eq = EQ
     st = make_ray_state(1, w=500.0, x=2.5, y=0.0, z=0.0,
                         kx=-500.0, ky=ky, kz=kz)
     st = init_k(st, disp.cold_plasma, eq, "kx",
@@ -43,6 +39,11 @@ def trace_endpoint(ky, kz):
     sol = Solver(disp.cold_plasma, eq, method="rk4", dt=2e-3, sub_steps=10)
     fin, _ = sol.trace(st, 30)          # t = 0.6: deep inside the plasma
     return jnp.stack([fin.x[0], fin.y[0], fin.z[0]])
+
+
+# the endpoint of the (ky, kz) = (45, 60) launch: exactly reachable, so the
+# optimizer (starting from (30, 30)) should drive the miss to ~0
+TARGET = trace_endpoint(45.0, 60.0)
 
 
 def loss(params):

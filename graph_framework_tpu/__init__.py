@@ -1,8 +1,9 @@
-"""graph_framework_tpu: a TPU-native differentiable plasma ray-tracing framework.
+"""graph_framework_tpu: a differentiable plasma ray-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ORNL-Fusion/graph_framework (a C++20 computational-graph framework with
-symbolic autodiff and runtime kernel codegen; see /root/reference).
+symbolic autodiff and runtime kernel codegen;
+https://github.com/ORNL-Fusion/graph_framework).
 
 Where the reference builds a symbolic expression DAG, differentiates it with
 per-node ``df`` rules, and string-prints CUDA/Metal/C++ kernels that are JIT

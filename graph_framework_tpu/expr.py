@@ -3,7 +3,7 @@
 The reference's user-facing embedding API is symbolic graph construction -
 ``graph::variable/constant/add/.../df`` - plus a ``workflow::manager`` that
 compiles setter kernels (reference: graph_c_binding/graph_c_binding.h:177-639,
-graph_framework/workflow.hpp).  The TPU-native physics stack (models/,
+graph_framework/workflow.hpp).  The physics stack (models/,
 solver.py) does not need any of this - JAX traces Python functions directly -
 but legacy embedders (the C and Fortran bindings) speak this API, so this
 module provides a thin expression tree whose

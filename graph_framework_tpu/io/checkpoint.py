@@ -5,7 +5,7 @@ The reference's only checkpoint mechanism is its NetCDF result files: the
 (absorption reopens the trace file and appends; output.hpp:73-82,
 absorption.hpp:298-316).  ``io.output.ResultFile`` reproduces that flow.
 
-This module adds the TPU-native piece the reference never had: a
+This module adds a piece the reference never had: a
 device-sharding-aware checkpoint of the live ray state itself, so a long
 multi-host trace can stop and resume without round-tripping through the
 per-step result file.  Arrays are saved with their shardings (each host

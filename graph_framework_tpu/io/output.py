@@ -1,6 +1,6 @@
 """Result files: time-series of per-ray variables, in true NetCDF4 format.
 
-TPU-native counterpart of ``output::result_file``/``data_set`` and the
+Counterpart of ``output::result_file``/``data_set`` and the
 double-buffered writer thread (reference: graph_framework/output.hpp:32-472,
 solver.hpp:418-424).  The reference writes NetCDF with dimensions
 (time=unlimited, num_rays, ray_dim) where ray_dim=2 holds re/im for complex
@@ -34,7 +34,6 @@ import queue
 import threading
 from typing import Dict, Optional, Sequence
 
-import h5py
 import numpy as np
 
 # netcdf-c naming conventions (netcdf-c include/nc4internal.h)
@@ -57,6 +56,8 @@ class ResultFile:
     """
 
     def __init__(self, path, num_rays: Optional[int] = None, mode="w"):
+        import h5py
+
         self.path = str(path)
         self._h = h5py.File(self.path, mode)
         if mode == "w":

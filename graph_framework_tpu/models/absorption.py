@@ -1,6 +1,6 @@
 """Power absorption along traced rays: complex kamp update + binning.
 
-TPU-native counterpart of ``absorption::weak_damping/root_finder`` and the
+Counterpart of ``absorption::weak_damping/root_finder`` and the
 xrays ``bin_power`` phase (reference: graph_framework/absorption.hpp:111-487,
 graph_driver/xrays.cpp:598-793).  The reference re-opens the trace NetCDF,
 and for every saved timestep loads the 8 state arrays to the device, runs a
@@ -8,10 +8,12 @@ complex-dtype kernel updating the wave amplitude kamp, and writes it back;
 power binning then accumulates Im(kamp) dl along each trajectory.
 
 Complex dtypes: the kamp physics is genuinely complex (hot-plasma Z
-function).  Native complex works on CPU; this TPU backend has no complex
-support, so ``jax.default_device``/platform selection decides where the
-absorption phase runs (it is file-bound post-processing in the reference
-too).
+function) and runs in native complex by default; the split (re, im)
+real-pair kernels stay available on request (``run_absorption(split=True)``).
+
+The covariant-to-cartesian basis products run at full f32/f64 precision
+(``HIGHEST``): on a GPU a default-precision f32 matrix product may run in
+TF32, which keeps about three decimal digits.
 """
 
 from __future__ import annotations
@@ -25,6 +27,13 @@ from graph_framework_tpu.models import dispersion as disp
 from graph_framework_tpu.models.rays import RayState
 from graph_framework_tpu.ops.newton import newton_solve
 from graph_framework_tpu.ops.special import z_erfi, z_plasma
+
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _matvec(v, m):
+    """``v @ m`` at full precision."""
+    return jnp.matmul(v, m, precision=HIGHEST)
 
 
 def make_weak_damping(eq, z_function=None):
@@ -48,17 +57,17 @@ def make_weak_damping(eq, z_function=None):
         pos = jnp.stack([x, y, z])
         kcov = jnp.stack([kx, ky, kz])
         esup = eq.esup(pos).astype(kcov.dtype)
-        kvec = kcov @ esup
+        kvec = _matvec(kcov, esup)
         klen = jnp.sqrt(jnp.sum(kvec * kvec))
         k_unit = kvec / klen
 
         def dc_of(kcov_):
-            kvec_ = kcov_ @ esup
+            kvec_ = _matvec(kcov_, esup)
             return disp.cold_plasma_expansion(w, kvec_, pos, t, eq)
 
         ddc_dkcov = jax.grad(dc_of, holomorphic=True)(kcov)
         # dDc/dk as a physical vector: sum_i dDc/dk_i e^i
-        ddc_vec = ddc_dkcov @ esup
+        ddc_vec = _matvec(ddc_dkcov, esup)
         dw = dw_fn(w, kvec, pos, t, eq)
         return klen - dw / jnp.sum(k_unit * ddc_vec)
 
@@ -88,7 +97,7 @@ def make_root_finder(eq, z_function=None, *, tolerance=1.0e-30,
         pos = jnp.stack([state.x, state.y, state.z], axis=-1)
         kcov = jnp.stack([state.kx, state.ky, state.kz], axis=-1)
         esup = jax.vmap(eq.esup)(pos).astype(kcov.dtype)
-        kvec = jnp.einsum("ri,rij->rj", kcov, esup)
+        kvec = jnp.einsum("ri,rij->rj", kcov, esup, precision=HIGHEST)
         klen = jnp.sqrt(jnp.sum(kvec * kvec, axis=-1))
         k_unit = kvec / klen[..., None]
 
@@ -107,10 +116,9 @@ def make_root_finder(eq, z_function=None, *, tolerance=1.0e-30,
 
 
 def make_weak_damping_split(eq):
-    """Complex-free weak-damping kamp update for TPU backends.
+    """Complex-free weak-damping kamp update (real-pair arithmetic).
 
-    This TPU backend supports no complex dtypes at all, but for *real*
-    trajectory data (which is what the trace phase saves) the only complex
+    For *real* trajectory data (which is what the trace phase saves) the only complex
     quantity in the weak-damping update is Z(zeta) with real zeta:
     Dc and its k-gradient are real, and Dw factors as
 
@@ -128,8 +136,8 @@ def make_weak_damping_split(eq):
 
     def kamp_batched(t, w, pos, kvec, ddc_vec):
         """Batched (component-axis-leading) kamp body: vectors are
-        (3, ...) so every intermediate is lane-major on TPU (see
-        models/rays.py for the measured layout rationale).  ``ddc_vec`` is
+        (3, ...) so every intermediate is a full per-ray array (see
+        models/rays.py for the layout rationale).  ``ddc_vec`` is
         the cold-expansion k-gradient as a physical vector, computed by the
         caller (covariant-through-esup for non-cartesian equilibria,
         absorption.hpp:408-412)."""
@@ -196,12 +204,13 @@ def make_weak_damping_split(eq):
             p = jnp.stack([x, y, z])
             kc = jnp.stack([kx, ky, kz])
             esup = eq.esup(p)
-            kv = kc @ esup
+            kv = _matvec(kc, esup)
 
             def dc_of(kc_):
-                return disp.cold_plasma_expansion(w, kc_ @ esup, p, t, eq)
+                return disp.cold_plasma_expansion(w, _matvec(kc_, esup), p, t,
+                                                  eq)
 
-            ddc_vec = jax.grad(dc_of)(kc) @ esup
+            ddc_vec = _matvec(jax.grad(dc_of)(kc), esup)
             return kamp_batched(t, w, p, kv, ddc_vec)
 
         return jax.vmap(one)(state.t, state.w, state.x, state.y, state.z,
@@ -215,8 +224,8 @@ def hot_plasma_split(w, kvec_c, pos, t, eq):
 
     ``w``, ``pos``, ``t`` real per-ray scalars; ``kvec_c`` a Cplx 3-vector
     (tuple of 3 Cplx) - complex through the kamp shift along khat.
-    Transcription of make_hot_plasma with Cplx arithmetic so it runs on
-    TPU backends without complex dtypes.
+    Transcription of make_hot_plasma with Cplx arithmetic (no complex
+    dtypes).
     """
     from graph_framework_tpu.constants import (
         Q, ME, C, plasma_frequency_squared, cyclotron_frequency)
@@ -264,7 +273,7 @@ def hot_plasma_split(w, kvec_c, pos, t, eq):
 
 def make_root_finder_split(eq, *, tolerance=1.0e-30, max_iterations=1000,
                            return_diagnostics=False):
-    """Complex-free Newton root finder for kamp (the TPU counterpart of
+    """Complex-free Newton root finder for kamp (the real-pair form of
     make_root_finder): solve D_hot(k + kamp khat) = 0 for complex kamp
     carried as (re, im), Newton-updating with the holomorphic derivative
     obtained from one jvp (Cauchy-Riemann: tangent (1, 0) on (re, im)
@@ -305,7 +314,7 @@ def make_root_finder_split(eq, *, tolerance=1.0e-30, max_iterations=1000,
             pos = jnp.stack([state.x, state.y, state.z], axis=-1)
             kcov = jnp.stack([state.kx, state.ky, state.kz], axis=-1)
             esup = jax.vmap(eq.esup)(pos)
-            kvec = jnp.einsum("ri,rij->rj", kcov, esup)
+            kvec = jnp.einsum("ri,rij->rj", kcov, esup, precision=HIGHEST)
             klen = jnp.sqrt(jnp.sum(kvec * kvec, axis=-1))
             khat = kvec / klen[..., None]
 
@@ -377,24 +386,19 @@ def run_absorption(file, eq, method="weak_damping", *,
                    dtype=jnp.complex128, writer=None,
                    update_fn: Optional[Callable] = None,
                    safe_math: bool = True,
-                   split: Optional[bool] = None):
+                   split: bool = False):
     """Drive a kamp update over every timestep of a trace result file
     (the reference's per-time_index read/run/write loop,
     absorption.hpp:465-483, xrays.cpp:551-585).
 
     Appends a complex "kamp" variable to the file.
 
-    ``split``: use the complex-free (re, im) TPU kernels
+    ``split``: use the complex-free (re, im) real-pair kernels
     (make_weak_damping_split / make_root_finder_split) instead of the
-    native-complex ones.  Default: auto - True on the TPU backend, where
-    complex dtypes are UNIMPLEMENTED and the native path would crash the
-    CLI's phase 2.  The complex combination and SAFE_MATH scrub then
+    native-complex ones.  The complex combination and SAFE_MATH scrub then
     happen host-side in numpy.
     """
     import numpy as np
-
-    if split is None:
-        split = update_fn is None and jax.default_backend() == "tpu"
 
     if split:
         if update_fn is not None:
@@ -402,10 +406,7 @@ def run_absorption(file, eq, method="weak_damping", *,
                 "update_fn expects complex RayStates and is not supported "
                 "with split=True; pass split=False to use a custom update")
         # real counterpart of the requested complex dtype (f64 from
-        # complex128 where x64 is enabled; on the TPU backend x64 is
-        # unavailable and this resolves to f32).  Host-side derivation:
-        # materializing even a scalar complex array on the TPU backend
-        # raises UNIMPLEMENTED (found driving the 100k pipeline on chip).
+        # complex128 where x64 is enabled), derived host-side
         import numpy as _np
         real_dtype = jax.dtypes.canonicalize_dtype(
             _np.zeros((), dtype=dtype).real.dtype)

@@ -1,6 +1,6 @@
 """Dispersion relations D(omega, k, x, t) and the zoo of plasma waves.
 
-TPU-native counterpart of ``dispersion.hpp`` (reference:
+Counterpart of ``dispersion.hpp`` (reference:
 graph_framework/dispersion.hpp:227-1305).  Each dispersion function is a
 plain per-ray scalar JAX function
 
@@ -36,10 +36,9 @@ def _vdot(a, b):
 
     Vector quantities here are shaped (3,) per point or (3, num_rays)
     batched - the component axis LEADS so that under batched evaluation
-    every intermediate is a full (num_rays,) lane-major array.  A vmapped
-    formulation instead materializes (num_rays, 3) intermediates whose
-    3-wide trailing axis uses 3 of the 128 VPU lanes; measured on the
-    Boris pusher this costs 9x (125 ms vs 13.9 ms per 1e8-particle step).
+    every intermediate is a full (num_rays,) array; a vmapped formulation
+    would instead materialize (num_rays, 3) intermediates with a 3-wide
+    trailing axis.
     """
     return jnp.sum(a * b, axis=0)
 

@@ -1,11 +1,11 @@
 """EFIT tokamak equilibrium: bicubic psi(R, Z) + cubic profiles of psi.
 
-TPU-native counterpart of ``equilibrium::efit`` + ``make_efit`` (reference:
+Counterpart of ``equilibrium::efit`` + ``make_efit`` (reference:
 graph_framework/equilibrium.hpp:1145-1844).  The spline coefficient tables
-live in HBM cell-major - (nr, nz, 4, 4), gathered as one contiguous
-16-value block per point via a linearized index (2.8x faster than a
-two-index strided gather on a v5e; the layout-level version of the
-reference's USE_INDEX_CACHE / texture tricks, piecewise.hpp:256-325) - and the
+live in device memory cell-major - (nr, nz, 4, 4), gathered as one
+contiguous 16-value block per point via a linearized index (the
+layout-level version of the reference's USE_INDEX_CACHE / texture tricks,
+piecewise.hpp:256-325) - and the
 field derivatives dpsi/dr, dpsi/dz come from ``jax.grad`` of the spline
 evaluation, exactly where the reference uses symbolic ``df``
 (equilibrium.hpp:1366,1375).
@@ -21,13 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from graph_framework_tpu.models.equilibrium import (
-    Equilibrium, PlasmaQuantities)
+    Equilibrium, PlasmaQuantities, open_tables)
 from graph_framework_tpu.ops.spline import (
     eval_cubic_1d, eval_cubic_multi, eval_bicubic_2d, eval_bicubic_jet,
     eval_bicubic_jet_block, eval_cubic_multi_block,
@@ -175,7 +174,7 @@ class EfitEquilibrium(Equilibrium):
         (psi + its R/Z derivatives) and one fused profile block
         (ne, te, pressure, fpol share the psi cell index).
 
-        This is the TPU-layout version of the reference's subgraph
+        This is the layout-level version of the reference's subgraph
         memoization (equilibrium.hpp ``set_cache``, :1324-1384): inside one
         compiled kernel the cold-plasma D reads ne, ni(=te), and B, and all
         of them key on the same psi(R, Z) evaluation.
@@ -234,6 +233,15 @@ class EfitEquilibrium(Equilibrium):
         return FrozenCellEfit(
             psi_block=psi_block, iu=i.astype(f), jv=j.astype(f),
             prof_block=prof_block, pidx=pidx.astype(f), base=self)
+
+    def in_domain(self, x, y, z):
+        """Whether each point is finite and inside the psi table's (R, Z)
+        box - a trace can leave it and go on with extrapolated fields."""
+        r = jnp.sqrt(x * x + y * y)
+        nr, nz = self.psi_coeffs.shape[:2]
+        return (jnp.isfinite(r) & (r >= self.rmin)
+                & (r <= self.rmin + self.dr * nr)
+                & (z >= self.zmin) & (z <= self.zmin + self.dz * nz))
 
     def characteristic_field(self):
         """|B| at the magnetic axis, found by Newton on the normalized flux
@@ -462,9 +470,11 @@ class FrozenCellEfit(Equilibrium):
         return PlasmaQuantities(b=b, ne=ne, te=te, ni=(ni,), ti=(ti,))
 
 
-def make_efit(path, dtype=jnp.float64, replicate_reference_quirks=True,
+def make_efit(source, dtype=jnp.float64, replicate_reference_quirks=True,
               cell_local=True, custom_jet=False):
-    """Load an EFIT spline file (make_efit, equilibrium.hpp:1627-1844).
+    """Load an EFIT equilibrium (make_efit, equilibrium.hpp:1627-1844) from
+    a spline file's path or from the mapping of its tables
+    (tools.make_splines.efit_tables, tokamak_tables).
 
     ``replicate_reference_quirks``: the reference's efit constructor
     initializes the ne_c0/ne_c1 tables from the *te* tables
@@ -481,10 +491,7 @@ def make_efit(path, dtype=jnp.float64, replicate_reference_quirks=True,
     evaluates to near machine accuracy.  Default True; set False for
     bit-level parity with the reference's evaluation order.
     """
-    with h5py.File(path, "r") as h:
-        def arr(name):
-            return np.asarray(h[name][...], dtype=np.float64)
-
+    with open_tables(source) as arr:
         psi = np.stack([
             np.stack([arr(f"psi_c{a}{b}") for b in range(4)])
             for a in range(4)])                      # (4, 4, nr, nz)

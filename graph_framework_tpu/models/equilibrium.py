@@ -1,6 +1,6 @@
 """Plasma equilibrium models (fields + profiles).
 
-TPU-native counterpart of ``equilibrium::generic`` and the analytic
+Counterpart of ``equilibrium::generic`` and the analytic
 equilibria (reference: graph_framework/equilibrium.hpp:235-1104).  Instead of
 virtual methods returning graph nodes, an equilibrium here is a *pytree
 dataclass* whose methods are plain per-point JAX functions: they take a
@@ -15,13 +15,34 @@ eV, magnetic fields in T, positions in m.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from collections.abc import Mapping
 from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from graph_framework_tpu.constants import MI_DEUTERIUM
+
+
+@contextlib.contextmanager
+def open_tables(source):
+    """Yield ``arr(name) -> float64 array`` over an equilibrium's tables.
+
+    ``source`` is either a mapping of table name to array (as
+    tools.make_splines.efit_tables / vmec_tables return) or the path of a
+    spline file in the reference's NetCDF4/HDF5 format; only the latter
+    needs h5py.
+    """
+    if isinstance(source, Mapping):
+        yield lambda name: np.asarray(source[name], dtype=np.float64)
+        return
+    import h5py
+
+    with h5py.File(source, "r") as h:
+        yield lambda name: np.asarray(h[name][...], dtype=np.float64)
 
 
 class PlasmaQuantities(NamedTuple):
@@ -30,8 +51,8 @@ class PlasmaQuantities(NamedTuple):
 
     The reference memoizes equilibrium subgraphs keyed on the evaluation
     point (``set_cache``, equilibrium.hpp:1324-1384) so the ne/te/B
-    expressions share their psi lookup inside one kernel; the TPU-native
-    equivalent is this fused accessor - spline equilibria serve all fields
+    expressions share their psi lookup inside one kernel; the equivalent
+    here is this fused accessor - spline equilibria serve all fields
     from a single coefficient-block gather instead of one gather per
     accessor call (see ``EfitEquilibrium.plasma_quantities``).
     """
@@ -123,7 +144,7 @@ class Equilibrium:
 
     def bind_point(self, pos):
         """Return an equilibrium *view* with any shared geometry
-        precomputed at ``pos`` - the TPU-native form of the reference's
+        precomputed at ``pos`` - the counterpart of the reference's
         subgraph memoization keyed on the evaluation point (``set_cache``,
         equilibrium.hpp:1324-1384, 2073-2141).
 

@@ -1,6 +1,6 @@
 """Hamiltonian ray equations from the dispersion relation via jax.grad.
 
-TPU-native counterpart of ``dispersion::dispersion_interface``
+Counterpart of ``dispersion::dispersion_interface``
 (reference: graph_framework/dispersion.hpp:1319-1448).  The reference builds
 
     dx/dt = -D_k / D_w
@@ -125,14 +125,13 @@ def make_ray_rhs(dispersion: Callable, eq, *, holomorphic=None,
     canonical form; see the module docstring.  No effect for cartesian
     equilibria.
 
-    TPU layout: for cartesian equilibria the whole ensemble is evaluated
+    Layout: for cartesian equilibria the whole ensemble is evaluated
     BATCHED - vectors keep the component axis leading, every intermediate
-    is a lane-major (num_rays,) array, and the seven per-ray derivatives
-    come from one reverse pass over sum(D) (per-ray independence makes
+    is a full (num_rays,) array, and the seven per-ray derivatives come
+    from one reverse pass over sum(D) (per-ray independence makes
     grad-of-sum the per-ray gradient, as in ops.newton._elementwise_grad).
-    A vmapped per-ray formulation materializes (num_rays, 3) intermediates
-    whose 3-wide trailing axis wastes 125 of 128 VPU lanes (measured 9x on
-    the Boris pusher).  The equilibrium stack is batched-polymorphic
+    A vmapped per-ray formulation would materialize (num_rays, 3)
+    intermediates with a 3-wide trailing axis.  The equilibrium stack is batched-polymorphic
     (component axis leading), so this applies to EFIT and VMEC alike; only
     ``reference_correction`` on a non-cartesian equilibrium falls back to
     the per-ray vmapped path.

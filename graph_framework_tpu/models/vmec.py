@@ -1,6 +1,6 @@
 """VMEC stellarator equilibrium: Fourier-mode radial splines in flux coords.
 
-TPU-native counterpart of ``equilibrium::vmec`` + ``make_vmec`` (reference:
+Counterpart of ``equilibrium::vmec`` + ``make_vmec`` (reference:
 graph_framework/equilibrium.hpp:1867-2651).  Coordinates are flux coordinates
 (s, u, v); the cylindrical R, Z and the stream function lambda are Fourier
 series over (xm, xn) modes with per-mode cubic radial splines:
@@ -15,7 +15,7 @@ plus the cylinder rotation (the reference differentiates symbolically,
 the Jacobian (:2030-2140).
 
 The mode dimension is a dense vector axis (86 modes in vmec.nc), so the
-Fourier sums are VPU-friendly elementwise reductions, and the radial spline
+Fourier sums are elementwise products and reductions, and the radial spline
 gather fetches a (4, num_modes) block per point.
 """
 
@@ -23,12 +23,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from graph_framework_tpu.models.equilibrium import Equilibrium
+from graph_framework_tpu.models.equilibrium import Equilibrium, open_tables
 from graph_framework_tpu.ops.tables import table_index_1d
 
 
@@ -44,49 +43,25 @@ def _spline_modes(coeffs, s, scale, offset, local):
     idx = table_index_1d(s, scale, offset, ns)
     if local:
         u = u - idx.astype(u.dtype)
-    block = _block_fetch(coeffs, idx, batched=jnp.ndim(s) == 1)
+    block = _block_fetch(coeffs, idx)
     u = u[..., None] if jnp.ndim(u) else u       # broadcast over modes
     return (block[..., 0, :] + u * (block[..., 1, :]
             + u * (block[..., 2, :] + u * block[..., 3, :])))
 
 
-def _block_fetch(coeffs, idx, batched):
-    """Fetch the (4, m) coefficient block of each ray's radial cell.
-
-    Two lowerings:
-      * MXU one-hot contraction for batched f32 ensembles: the radial
-        table is small (numsf ~ 100 cells), so ``onehot(idx) @ table`` is
-        a (rays, ns) x (ns, 4m) matmul - numerically EXACT (0/1 weights,
-        one nonzero per row) and it moves the hot-loop fetch off the
-        gather path (TPU gathers issue per-index through the scalar core;
-        the MXU streams the whole table once per tile).  Reverse-mode
-        transposes to another matmul instead of a scatter-add, and the
-        integer index stays non-differentiable (the reference's
-        piecewise-constant-in-index semantics, piecewise.hpp:241-243).
-      * flat single-trailing-dim dynamic gather otherwise (scalar probes,
-        f64 CPU tests - a one-hot matmul there just wastes flops).
-    """
+def _block_fetch(coeffs, idx):
+    """Fetch the (4, m) coefficient block of each ray's radial cell: one
+    flat gather over a single trailing dimension.  The integer index
+    carries no gradient (the reference's piecewise-constant-in-index
+    semantics, piecewise.hpp:241-243)."""
     ns, _, m = coeffs.shape
     flat = coeffs.reshape(ns, 4 * m)
-    if batched and coeffs.dtype == jnp.float32 and ns <= 512:
-        onehot = (idx[:, None] == jnp.arange(ns, dtype=idx.dtype)[None, :]
-                  ).astype(coeffs.dtype)                  # (rays, ns)
-        # precision=HIGHEST: at DEFAULT, large-shape lowerings route this
-        # through the MXU in bf16 and silently truncate the f32 spline
-        # coefficients (caught in round 3: the 100k-ray TPU trajectory
-        # diverged from both the CPU run and the exact fused kernel,
-        # while an explicit highest-precision run matched the kernel to
-        # 7 digits).  Selection is exact only if the table values
-        # survive the product.
-        block = jnp.matmul(jax.lax.stop_gradient(onehot), flat,
-                           precision=jax.lax.Precision.HIGHEST)
-        return block.reshape(idx.shape + (4, m))
     return flat[idx].reshape(jnp.shape(idx) + (4, m))
 
 
 def _spline_modes_jet(coeffs, s, scale, offset, local):
     """All per-mode radial splines AND their s-derivatives from one block
-    fetch (gather or one-hot matmul - see :func:`_block_fetch`).
+    fetch (see :func:`_block_fetch`).
 
     The derivative is the Horner of the analytically differentiated
     polynomial over the same block (the mechanism of
@@ -98,7 +73,7 @@ def _spline_modes_jet(coeffs, s, scale, offset, local):
     idx = table_index_1d(s, scale, offset, ns)
     if local:
         u = u - idx.astype(u.dtype)
-    block = _block_fetch(coeffs, idx, batched=jnp.ndim(s) == 1)
+    block = _block_fetch(coeffs, idx)
     u = u[..., None] if jnp.ndim(u) else u
     c0, c1 = block[..., 0, :], block[..., 1, :]
     c2, c3 = block[..., 2, :], block[..., 3, :]
@@ -157,14 +132,6 @@ class VmecEquilibrium(Equilibrium):
     sminh: float = dataclasses.field(metadata=dict(static=True))
     ds: float = dataclasses.field(metadata=dict(static=True))
     cell_local: bool = dataclasses.field(
-        default=False, metadata=dict(static=True))
-    # Opt-in: fuse the ten Fourier mode sums (trig + products + mode
-    # reductions) into one Pallas kernel (pallas/vmec_modes.py) on the
-    # batched f32 path - the device profile shows ~35% of substep time
-    # in XLA's multiply+reduce fusions there.  Default off: the kernel
-    # requires a TPU (or Pallas interpret mode) and the plain-XLA path
-    # is the portable reference.
-    fused_mode_sums: bool = dataclasses.field(
         default=False, metadata=dict(static=True))
     # replicate the reference's double-normalized chi argument (see chi()).
     quirky_chi: bool = dataclasses.field(
@@ -316,7 +283,6 @@ class VmecEquilibrium(Equilibrium):
             rz_tab = jnp.concatenate(
                 [self.rmnc_coeffs, self.zmns_coeffs], axis=-1)
             l_tab = self.lmns_coeffs
-        batched = jnp.ndim(s) == 1
         idx_f = table_index_1d(s, self.ds, self.sminf, rz_tab.shape[0])
         idx_h = table_index_1d(s, self.ds, self.sminh, l_tab.shape[0])
         idx_c = table_index_1d(s, self.ds, self.sminf,
@@ -324,8 +290,8 @@ class VmecEquilibrium(Equilibrium):
         f = jnp.real(s).dtype
         return _FrozenRadialVmec(
             base=self,
-            rz_block=_block_fetch(rz_tab, idx_f, batched),
-            l_block=_block_fetch(l_tab, idx_h, batched),
+            rz_block=_block_fetch(rz_tab, idx_f),
+            l_block=_block_fetch(l_tab, idx_h),
             chi_block=self.chi_coeffs[idx_c],
             idx_f=idx_f.astype(f), idx_h=idx_h.astype(f),
             idx_c=idx_c.astype(f))
@@ -599,35 +565,8 @@ def _rzl_and_jac(eq: VmecEquilibrium, s, u, v):
     coordinates (polynomials and trig are entire).
 
     Returns ((R, Z, l), (dR, dZ, dl)) with each dX = (d/ds, d/du, d/dv).
-
-    NARROWED CONTRACT under ``eq.fused_mode_sums``: the Pallas kernel
-    evaluates only the 10 sums the geometry consumes, so ``l`` and
-    ``dl/ds`` are returned as zeros on that path (esup/B/Jacobian need
-    only dl/du and dl/dv).  Callers that need l itself (e.g.
-    tools/bench_vmec_micro.py) must use the default path.
     """
     if eq.grid_scatter is not None:
-        if (eq.fused_mode_sums and eq.cell_local and jnp.ndim(s) == 1
-                and jnp.result_type(s) == jnp.float32):
-            # round-3 fully-fused geometry: radial fetch + Horner + trig +
-            # all ten mode sums in ONE Pallas kernel (and a symmetric
-            # backward kernel for the RHS's jax.grad) - the (rays, modes)
-            # intermediates dominating the XLA path's device profile never
-            # touch HBM.  interpret mode on every non-TPU backend (Mosaic
-            # only lowers for TPU) keeps the flag path testable on CPU.
-            import os
-            from graph_framework_tpu.pallas.vmec_geom import (
-                make_fused_geometry)
-            f = make_fused_geometry(
-                eq, block=int(os.environ.get("GRAPH_VMEC_BLOCK", "512")),
-                split_words=int(os.environ.get("GRAPH_VMEC_SPLIT", "3")),
-                interpret=jax.default_backend() != "tpu")
-            (r, z, drs, dru, drv, dzs, dzu, dzv, dlu, dlv) = f(s, u, v)
-            zero = jnp.zeros_like(r)
-            # l and dl/ds are not evaluated on this path: the geometry
-            # (esup/B/Jacobian) consumes only dl/du and dl/dv
-            return ((r, z, zero),
-                    ((drs, dru, drv), (dzs, dzu, dzv), (zero, dlu, dlv)))
         # rmnc and zmns share the full radial grid: ONE concatenated
         # (num_s, 4, 2*n_grid) table -> one block gather serves both
         # (halves the gather-op count of the hot path; the concat is over
@@ -679,9 +618,10 @@ def _mode_sums(rm, zm, lm, rm_s, zm_s, lm_s, ca, sa, xm, xn):
     return (r, z, l), (dr, dz, dl)
 
 
-def make_vmec(path, dtype=jnp.float64, cell_local=True, quirky_chi=False,
-              fused_mode_sums=False):
-    """Load a VMEC spline file (make_vmec, equilibrium.hpp:2424-2651).
+def make_vmec(source, dtype=jnp.float64, cell_local=True, quirky_chi=False):
+    """Load a VMEC equilibrium (make_vmec, equilibrium.hpp:2424-2651) from a
+    spline file's path or from the mapping of its tables
+    (tools.make_splines.vmec_tables).
 
     ``cell_local``: rebase radial spline tables to cell-local coordinates at
     load time for well-conditioned evaluation (see efit.make_efit).
@@ -689,10 +629,7 @@ def make_vmec(path, dtype=jnp.float64, cell_local=True, quirky_chi=False,
     from graph_framework_tpu.ops.spline import (
         rebase_cells_1d, to_cell_major_1d)
 
-    with h5py.File(path, "r") as h:
-        def arr(name):
-            return np.asarray(h[name][...], dtype=np.float64)
-
+    with open_tables(source) as arr:
         chi = np.stack([arr(f"chi_c{i}") for i in range(4)])
 
         def stack_modes(prefix):
@@ -752,5 +689,4 @@ def make_vmec(path, dtype=jnp.float64, cell_local=True, quirky_chi=False,
             ds=float(arr("ds")),
             cell_local=cell_local,
             quirky_chi=quirky_chi,
-            fused_mode_sums=fused_mode_sums,
         )

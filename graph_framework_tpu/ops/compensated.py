@@ -1,19 +1,18 @@
-"""Compensated (double-word) state accumulation: the fast high-precision
-trace path for TPUs.
+"""Compensated (double-word) state accumulation: a high-precision trace
+path at f32 cost.
 
 The reference's primary dtype is double with "no measurable f32/f64
-difference" on CPU (graph_docs/code_performance.dox:30-31).  This TPU has
-no native f64 - XLA emulates it with double-word arithmetic on EVERY
-operation, measured 4.8x slower than f32 (BENCH_r02.json).  But the f32
-trace does not lose accuracy uniformly: the RHS evaluation's rounding
+difference" on CPU (graph_docs/code_performance.dox:30-31).  Whether f32
+plus compensation beats native f64 on a given device is a measurement
+(PERF.md).  The f32 trace does not lose accuracy uniformly: the RHS evaluation's rounding
 errors are random-walk (sqrt(N) growth on 10^4 steps) while the per-step
 STATE UPDATE ``x <- x + dt*k`` rounds systematically against the large
 state magnitude - N * ulp(x) growth, the dominant f32 trajectory error.
 
 This module therefore carries the 8 ray-state arrays as double-word
 (hi, lo) f32 pairs and folds each integrator increment in with an exact
-TwoSum (Knuth 1969; branch-free, 6 VPU flops per state element per
-substep - noise next to the RHS cost), while the RHS itself runs plain
+TwoSum (Knuth 1969; branch-free, 6 flops per state element per substep -
+noise next to the RHS cost), while the RHS itself runs plain
 f32 on the hi words.  Error model: state-accumulation rounding is
 eliminated; what remains is the RHS's own f32 noise, so the trajectory
 tracks the f64 one to ~single-RHS-evaluation f32 accuracy instead of

@@ -1,4 +1,4 @@
-"""Split-complex arithmetic for TPU backends without complex dtypes.
+"""Split-complex arithmetic: complex values as (re, im) real pairs.
 
 A ``Cplx`` carries (re, im) real arrays and implements the holomorphic
 operations the absorption physics needs; the Faddeeva function ports to

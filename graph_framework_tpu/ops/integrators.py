@@ -1,6 +1,6 @@
 """Runge-Kutta / symplectic steppers over RayState pytrees.
 
-TPU-native counterpart of the ``solver::rk2/rk4/adaptive_rk4/
+Counterpart of the ``solver::rk2/rk4/adaptive_rk4/
 split_simplextic`` classes (reference: graph_framework/solver.hpp:550-1131).
 The reference re-derives the ray equations at shifted states by wrapping the
 shifted expressions in pseudo-variables (solver.hpp:642-649, 811-855); in

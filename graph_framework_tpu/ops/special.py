@@ -1,9 +1,9 @@
 """Special functions: Faddeeva w(z), complex erf, erfi, Dawson, plasma Z.
 
-TPU-native replacement for the reference's ``special_functions.hpp`` (a
-branch-heavy scalar implementation derived from the MIT Faddeeva package,
-compiled into device kernels - special_functions.hpp:40-1590).  Scalar
-branching does not vectorize on the VPU, so this implementation selects
+Replacement for the reference's ``special_functions.hpp`` (a branch-heavy
+scalar implementation derived from the MIT Faddeeva package, compiled into
+device kernels - special_functions.hpp:40-1590).  Scalar branching does
+not vectorize, so this implementation selects
 between three *regionally exact* evaluations with ``jnp.where``:
 
 * ``|z| >= 6``   - Laplace continued fraction of w(z) (monotone convergence
@@ -243,8 +243,8 @@ def dawson_real(x, h=0.25, n_terms=33):
 
     with the sum taken over odd n centred on x/h; truncation error is
     O(exp(-(pi/2h)^2)), ~1e-17 at h = 0.25 with ~33 terms.  Built from
-    exp/adds only, so it runs on TPU backends without complex support
-    (unlike dawson() above, which routes through w(z)).
+    exp/adds only, so it needs no complex dtype (unlike dawson() above,
+    which routes through w(z)).
     """
     x = jnp.asarray(x)
     # nearest even multiple of h below x: sum over odd offsets around it
@@ -262,8 +262,8 @@ def z_plasma_real(zeta):
 
     Z(x) = i sqrt(pi) w(x) with w(x) = exp(-x^2) + 2i D(x)/sqrt(pi)
     for real x, so Re Z = -2 D(x), Im Z = sqrt(pi) exp(-x^2).
-    This is the split-complex path for TPU backends without complex
-    dtypes (the absorption phase's zeta is real for real trajectories).
+    This is the split-complex path (the absorption phase's zeta is real
+    for real trajectories).
     """
     zeta = jnp.asarray(zeta)
     return (-2.0 * dawson_real(zeta),

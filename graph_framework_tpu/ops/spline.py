@@ -12,11 +12,10 @@ in r).
 
 Layout: tables here are CELL-MAJOR - all coefficients of one cell are
 contiguous - and bicubic lookups use a single linearized index
-``i*nz + j`` into a (ncells, 16) view.  Measured on a v5e chip, the
-one-index contiguous-block gather is 2.8x faster than the two-index
-strided gather over a [power, power, i, j] stack (0.93 ms vs 2.56 ms per
-100k bicubic evals); this is the TPU-layout analogue of the reference's
-texture/const-memory table packing (piecewise.hpp:256-325).
+``i*nz + j`` into a (ncells, 16) view: one contiguous-block gather per
+point instead of a two-index strided gather over a [power, power, i, j]
+stack - the layout analogue of the reference's texture/const-memory table
+packing (piecewise.hpp:256-325).
 
   * 1D:    (n, 4)         [cell, power]
   * multi: (n, P, 4)      [cell, profile, power]
@@ -134,9 +133,7 @@ def eval_cubic_multi(coeffs, x, scale, offset, local=False):
     idx = table_index_1d(x, scale, offset, n)
     if local:
         u = u - idx.astype(u.dtype)
-    # gather FLAT and reshape back: a gather with >1 trailing offset dim
-    # lowers to a slow path (measured 4.4 ms vs 0.63 ms per 100k points on
-    # a v5e); the flat single-trailing-dim form hits the fast path and the
+    # gather FLAT (one trailing offset dim) and reshape back; the
     # reshape is free.
     b = coeffs.reshape(n, P * 4)[idx]
     b = b.reshape(jnp.shape(idx) + (P, 4))        # (..., P, 4)
@@ -163,8 +160,8 @@ def _flat_block_2d(coeffs, x, x_scale, x_offset, y, y_scale, y_offset,
 def _block44(block, v):
     """Reshape a flat (..., 16) block to (..., a, b) and broadcast v.
 
-    The vectorized (..., 4)-lane Horner beats 16 scalar column slices
-    (measured 0.63 ms vs 1.35 ms per 100k points on a v5e)."""
+    The Horner runs vectorized over the (..., 4) axis instead of over 16
+    scalar column slices."""
     b = block.reshape(block.shape[:-1] + (4, 4))
     v_ = v[..., None] if jnp.ndim(v) else v
     return b, v_

@@ -1,10 +1,10 @@
 """Piecewise-constant table lookups (the reference's gather primitives).
 
-TPU-native analogue of ``graph::piecewise_1D/piecewise_2D/index_1D``
-(reference: graph_framework/piecewise.hpp).  The reference emits the tables
-into generated kernel source as ``__constant__`` arrays or binds CUDA/Metal
-textures; on TPU the tables are ordinary HBM-resident arrays and the lookup is
-an XLA gather (or a Pallas ``pl.load`` in the fused kernels).
+Analogue of ``graph::piecewise_1D/piecewise_2D/index_1D`` (reference:
+graph_framework/piecewise.hpp).  The reference emits the tables into
+generated kernel source as ``__constant__`` arrays or binds CUDA/Metal
+textures; here the tables are ordinary device arrays and the lookup is an
+XLA gather.
 
 Index semantics replicated exactly from the generated-kernel index expression
 (piecewise.hpp ``compile_index``, :26-60):
@@ -71,8 +71,8 @@ def piecewise_2d(data, x, x_scale, x_offset, y, y_scale, y_offset):
     num_rows, num_cols = data.shape
     i = table_index_1d(x, x_scale, x_offset, num_rows)
     j = table_index_1d(y, y_scale, y_offset, num_cols)
-    # one linearized index: a single-index gather lowers to the fast TPU
-    # gather path, unlike the strided two-index form (see ops/spline.py).
+    # one linearized index: a single-index gather instead of the strided
+    # two-index form (see ops/spline.py).
     return data.reshape(-1)[i * num_cols + j]
 
 

@@ -1,41 +1,10 @@
-"""Pallas TPU kernels.
+"""Pallas kernels.
 
-Round-3 state: TWO production kernels shipped -
+* ``efit_step`` - the frozen-window EFIT step as one Pallas kernel through
+  Triton (``Solver(pallas_window=True)``): a block of rays keeps its state
+  and frozen spline coefficients in registers for a whole freeze window.
 
-* ``vmec_geom.make_fused_geometry`` - the fused VMEC geometry-jet kernel
-  (radial one-hot MXU fetch + Horner + trig + all 27 jet sums in one
-  kernel per RHS, custom-jvp jet-linear AD): 10.01M vs 5.17M
-  ray-steps/s at full duration (BENCH_VMEC_r03.json).
-* ``boris.make_slab_push`` - the multi-step Boris push (particle block
-  VMEM-resident for a whole step chunk): 21.6G vs 6.1G particle-steps/s
-  (BENCH_KORC_r03.json).
-
-The winning pattern, against the round-1/2 negatives below: move the
-WHOLE producer-consumer chain inside the kernel (or many steps per HBM
-round trip); a kernel whose fat inputs are still computed outside turns
-pallas_call into a fusion barrier and loses to XLA.
-
-Earlier findings that still stand (measured on the v5e backend):
-
-* The ray-tracing hot loop is dominated by spline-coefficient gathers.
-  Mosaic lowers only same-shape shuffle gathers, so a VMEM-table
-  ``jnp.take`` inside a kernel fails to lower; the workable in-kernel
-  alternative (one-hot matmul on the MXU) measures within ~25% of XLA's
-  native gather (2.5 ms vs 3.1 ms per 1e5 bicubic evals), which does not
-  justify a hand-written kernel for the spline path.
-* Elementwise physics (Boris rotation, split-complex weak damping) is
-  already fully fused by XLA.
-* The PIC deposit is a genuine block-reduction workload and ships here as
-  a Pallas kernel (``deposit_pallas``, validated on-chip against the dense
-  sum to f32 precision).  Measured on v5e (1M particles x 1024 grid):
-  Pallas 12.8 ms vs XLA-scan 6.5 ms - XLA's pipelining wins, so
-  models/pic keeps the XLA path as default and the kernel stands as the
-  documented Pallas pattern for this framework.  (An unaligned (2, tile)
-  output block also silently wedged the device - output blocks must
-  respect the (8, 128) f32 tile.)
+A kernel runs compiled on a GPU and through the Pallas interpreter on the
+CPU (``runtime.interpret_kernels``).  It stays only while it beats the
+plain XLA path end to end on the card; PERF.md holds both numbers.
 """
-
-from graph_framework_tpu.pallas.deposit import deposit_pallas  # noqa: F401
-from graph_framework_tpu.pallas.vmec_geom import (  # noqa: F401
-    make_fused_geometry)
-from graph_framework_tpu.pallas.boris import make_slab_push  # noqa: F401

@@ -1,65 +1,58 @@
-"""VMEM-resident multi-substep Pallas kernel for frozen-window EFIT stepping.
+"""Frozen-window EFIT stepping as one Pallas kernel through Triton.
 
 The XLA frozen-window path (solver.py ``frozen_cells`` + ``freeze_every``)
-already deletes the re-gathers inside a window, but every substep still
-round-trips the 8 ray-state arrays (plus XLA's fusion temporaries) through
-HBM: the best committed leg reports hbm utilization ~0.29 with ~1% VPU use
-(BENCH_EFIT1M_r04).  Within a freeze window the right-hand side is
-GATHER-FREE - the bicubic psi block and the fused profile block are in hand
-- which is exactly the condition that made the Boris multi-step kernel
-(pallas/boris.py) work: keep a ray block resident in VMEM and advance it
-``freeze_every`` substeps per HBM round trip.
-
-Structure per window:
+gathers each ray's spline blocks once per window and then runs the K
+substeps of the window as a ``lax.scan``: one launch per substep, each
+reading and writing the ray state (and re-reading the frozen blocks)
+through device memory.  Within a window the right-hand side is
+gather-free elementwise math over the blocks in hand, so one program per
+block of rays can keep the state and the 16 + 16 coefficients in
+registers for all K substeps:
 
   1. XLA gathers the frozen blocks at the window's base state
-     (``EfitEquilibrium.freeze_cells`` - one bicubic block + one profile
-     block per ray, the same freeze the XLA path uses, so the numerics
-     are identical by construction);
-  2. the blocks are laid out coefficient-leading - (16, rows, 128) - so
-     each coefficient is a full VPU tile (a trailing 16-wide axis would
-     pad 16 -> 128 lanes and waste 8x VMEM);
-  3. one ``pallas_call`` advances the whole window: the kernel rebuilds
-     the ray RHS with ``make_ray_rhs`` against a frozen view that reads
-     the resident coefficients, and loops the rk2/rk4 stepper (optionally
-     under the compensated double-word accumulator) ``freeze_every``
-     times in VMEM.
+     (``EfitEquilibrium.freeze_cells``, the same freeze the XLA path
+     uses, so the numerics agree by construction) and lays them out
+     coefficient-leading, (16, N), so that each program's loads of one
+     coefficient are contiguous;
+  2. one ``pallas_call`` (``backend="triton"``) advances the window: each
+     program loads its (B,) slice of the state and (16, B) slices of the
+     coefficients, loops the rk2/rk4 stepper (optionally under the
+     compensated double-word accumulator) K times, and stores the state
+     once.
 
-HBM traffic per ray per window drops to one state read + write plus the
-frozen blocks (~(2*8 + 2*16 + 3) * 4 B amortized over K substeps) versus
-one state round trip per substep for the XLA path.
+Device-memory traffic per ray per window drops from K state round trips
+plus K block reads to one of each.
 
 Reference analogue: the single fused "solver_kernel" launched per step
-(cuda_context.hpp:524-529) - but fused across SUBSTEPS, which the
-reference never does (its kernel is one substep; the host loops).
+(cuda_context.hpp:524-529) - here fused across the substeps of a window,
+which the reference never does (its kernel is one substep; the host
+loops).
 
-The dispersion algebra inside the kernel is the very same Python the XLA
-path traces (models/rays.make_ray_rhs, models/dispersion.*,
-ops/integrators.*, ops/compensated.*) - only the equilibrium view and the
-launch mechanics differ; parity is pinned by tests/test_pallas_efit_step.
+The dispersion algebra inside the kernel is the very Python the XLA path
+traces (models/rays.make_ray_rhs, models/dispersion.*, ops/integrators.*,
+ops/compensated.*).  It keeps 3-vectors as stacked (3, B) arrays, which
+Triton cannot hold (its tensors have power-of-two sizes), so the substep
+is first traced to a jaxpr and re-evaluated by :func:`unstack_call` with
+every small leading axis split into a list of (B,) arrays.
 
-REVERSE MODE: the non-compensated window carries a ``jax.custom_vjp``
-whose backward is itself a VMEM-resident kernel (``_window_bwd_kernel``:
-in-kernel checkpointed recompute + per-substep ``jax.vjp``), so
-``jax.grad`` through whole traces runs at kernel speed - 495.7M fwd+bwd
-ray-steps/s full duration vs 36.2M for the best XLA remat path
-(BENCH_GRAD_r05).  ``table_grads=True`` additionally threads the spline
-tables through the custom_vjp and scatter-adds the backward kernel's
-per-ray block cotangents into them (``_window_bwd_tab_kernel``;
-config5's table gradients at 77.75M, 5.1x the XLA path).  The reference
-has no reverse-mode capability (its symbolic ``df`` differentiates the
-step expression, not the trace).
+Reverse mode: :func:`differentiable_window` gives the kernel a
+``jax.custom_vjp`` whose backward is ``jax.vjp`` of the XLA frozen window,
+with the spline tables as primal inputs, so launch-state and table
+gradients both flow.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from jax._src.interpreters import partial_eval as pe
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+from jax.extend.core import Literal
 
 from graph_framework_tpu.models.equilibrium import PlasmaQuantities
 from graph_framework_tpu.models.rays import RayState, make_ray_rhs
@@ -67,23 +60,20 @@ from graph_framework_tpu.ops.integrators import STEPPERS, INCREMENTS
 from graph_framework_tpu.ops.compensated import (
     CompCarry, compensated_stepper)
 
-LANES = 128
-
 
 class _FrozenView:
-    """Equilibrium view over VMEM-resident frozen coefficient tiles.
+    """Equilibrium view over frozen coefficient rows.
 
     Same narrowed contract and algebra as ``models.efit.FrozenCellEfit``
     (cell-local polynomial evaluation against the window-base blocks,
     stages may extrapolate slightly past the cell), but the 16 bicubic and
-    16 profile coefficients arrive as separate (rows, 128) arrays - the
-    coefficient-leading unrolled form a Mosaic kernel wants - instead of a
+    16 profile coefficients arrive as separate (B,) arrays instead of a
     trailing (..., 16) block axis.
     """
 
     def __init__(self, psi, prof, iu, jv, pidx, base):
-        self.psi = psi          # list of 16 (rows, lanes): [a * 4 + b]
-        self.prof = prof        # list of 16 (rows, lanes): [p * 4 + k]
+        self.psi = psi          # 16 arrays: [a * 4 + b]
+        self.prof = prof        # 16 arrays: [p * 4 + k]
         self.iu = iu
         self.jv = jv
         self.pidx = pidx
@@ -116,7 +106,7 @@ class _FrozenView:
 
     def plasma_quantities(self, pos):
         """FrozenCellEfit.plasma_quantities with the coefficient axis
-        unrolled (models/efit.py:294; bicubic jet = ops/spline.py
+        unrolled (models/efit.py; bicubic jet = ops/spline.py
         eval_bicubic_jet_block, profiles = eval_cubic_multi_block)."""
         base = self.base
         c = self.psi
@@ -156,438 +146,348 @@ class _FrozenView:
         return PlasmaQuantities(b=b, ne=ne, te=te, ni=(ni,), ti=(ti,))
 
 
-def _window_kernel(*refs, dispersion, method, dt, steps, base, compensated):
-    """Advance one ray block ``steps`` substeps against resident frozen
-    coefficients.  Ref order: state (8 or 16 with compensated lo words),
-    psi (16, rows, lanes), prof (16, rows, lanes), iu, jv, pidx, then the
-    matching state outputs."""
-    ns = 16 if compensated else 8
-    state_refs = refs[:ns]
-    psi_ref, prof_ref = refs[ns], refs[ns + 1]
-    iu_ref, jv_ref, pidx_ref = refs[ns + 2], refs[ns + 3], refs[ns + 4]
-    out_refs = refs[ns + 5:]
-
-    view = _FrozenView(
-        psi=[psi_ref[i] for i in range(16)],
-        prof=[prof_ref[i] for i in range(16)],
-        iu=iu_ref[...], jv=jv_ref[...], pidx=pidx_ref[...], base=base)
-    rhs = make_ray_rhs(dispersion, view, holomorphic=False)
-
-    # The substep loop is UNROLLED: steps = freeze_every <= sub_steps is
-    # small by construction (10 in the production stack), and a
-    # fori_loop here carries an i64 counter under jax_enable_x64 (the
-    # bench's f64 leg flips it globally) that Mosaic cannot lower
-    # ("failed to legalize 'func.return'" on (i32, i64) - explicit i32
-    # bounds did not stick either).
-    if compensated:
-        cstep = compensated_stepper(
-            lambda s: INCREMENTS[method](rhs, s, dt))
-        carry = CompCarry(
-            RayState(*[r[...] for r in state_refs[:8]]),
-            RayState(*[r[...] for r in state_refs[8:]]))
-        for _ in range(steps):
-            carry = cstep(carry)
-        for r, v in zip(out_refs, tuple(carry.hi) + tuple(carry.lo)):
-            r[...] = v
-    else:
-        stepper = STEPPERS[method]
-        st = RayState(*[r[...] for r in state_refs])
-        for _ in range(steps):
-            st = stepper(rhs, st, dt)
-        for r, v in zip(out_refs, st):
-            r[...] = v
+# ---------------------------------------------------------------------------
+# Unstacking: (n, B) arrays -> lists of n (B,) arrays
+# ---------------------------------------------------------------------------
+class _Stack(tuple):
+    """An (n, ...) array held as the tuple of its n leading slices."""
 
 
-def _depad_call(fn, args):
-    """Evaluate ``fn(args)`` with every negative-padding ``lax.pad``
-    rewritten to the equivalent ``lax.slice``.
+# parameters that name an axis: a primitive carrying one acts along a
+# dimension and is not elementwise
+_AXIS_PARAMS = {"axes", "axis", "dimension", "dimensions",
+                "broadcast_dimensions", "dimension_numbers", "new_sizes",
+                "start_indices", "padding_config", "permutation", "sizes"}
 
-    jax's transpose rule for ``pad`` emits pads with NEGATED
-    padding_config (a slice in pad clothing); Mosaic's pad lowering
-    requires positive sizes and fails on them ("vector types must have
-    positive constant sizes").  The double transpose in the backward
-    window kernel (transpose of the positive pads that are themselves
-    transposes of the RHS's component slices) hits exactly this.  The
-    forward kernel's positive pads and plain slices lower fine, so the
-    rewrite restores the representation Mosaic accepts without changing
-    a single value.
 
-    The traced computation is first-order (no call/scan primitives -
-    asserted), so a flat jaxpr walk suffices.
-    """
-    closed = jax.make_jaxpr(fn)(
-        *[jax.ShapeDtypeStruct(a.shape, a.dtype) for a in args])
+# call-like primitives: their body runs once on their operands, so it
+# can be inlined (loops and conditionals are not among them)
+_CALLS = {"pjit", "jit", "closed_call", "core_call", "custom_jvp_call",
+          "custom_vjp_call", "custom_vjp_call_jaxpr", "remat",
+          "checkpoint"}
+
+
+def _call_jaxpr(eqn):
+    """The inner jaxpr of a call-like primitive, or None."""
+    if eqn.primitive.name not in _CALLS:
+        return None
+    for key in ("jaxpr", "call_jaxpr", "fun_jaxpr"):
+        inner = eqn.params.get(key)
+        if inner is None:
+            continue
+        if hasattr(inner, "consts"):
+            return inner.jaxpr, inner.consts
+        return inner, ()
+    return None
+
+
+def _bcast(x, shape):
+    return jax.lax.broadcast_in_dim(x, shape, tuple(
+        range(len(shape) - jnp.ndim(x), len(shape))))
+
+
+def _broadcast_rule(eqn, x):
+    shape = eqn.params["shape"]
+    dims = eqn.params["broadcast_dimensions"]
+    if len(shape) < 2:
+        return None
+    n, rest = shape[0], tuple(shape[1:])
+    if isinstance(x, _Stack):
+        if dims[0] != 0:
+            raise NotImplementedError("broadcast moving a stacked axis")
+        parts = [_bcast(p, rest) for p in x]
+        return _Stack(parts * n if len(parts) == 1 and n > 1 else parts)
+    if dims and dims[0] == 0:
+        raise NotImplementedError("broadcast stacking a traced vector")
+    return _Stack([_bcast(x, rest)] * n)
+
+
+def _concatenate_rule(eqn, *xs):
+    if eqn.params["dimension"] != 0 or len(eqn.outvars[0].aval.shape) < 2:
+        return None
+    return _Stack(sum((tuple(x) for x in xs), ()))
+
+
+def _slice_rule(eqn, x):
+    if not isinstance(x, _Stack):
+        return None
+    start = eqn.params["start_indices"]
+    limit = eqn.params["limit_indices"]
+    strides = eqn.params["strides"] or (1,) * len(start)
+    shape = eqn.invars[0].aval.shape
+    if any(s != 0 or l != d or st != 1 for s, l, d, st in
+           zip(start[1:], limit[1:], shape[1:], strides[1:])):
+        raise NotImplementedError("slice of a stacked value along rays")
+    return _Stack(x[start[0]:limit[0]:strides[0]])
+
+
+def _squeeze_rule(eqn, x):
+    if not isinstance(x, _Stack):
+        return None
+    if tuple(eqn.params["dimensions"]) != (0,) or len(x) != 1:
+        raise NotImplementedError("squeeze of a non-leading axis")
+    return x[0]
+
+
+def _reshape_rule(eqn, x):
+    out = tuple(eqn.outvars[0].aval.shape)
+    if isinstance(x, _Stack):
+        if len(x) == 1 and out == tuple(eqn.invars[0].aval.shape[1:]):
+            return x[0]
+        raise NotImplementedError(f"reshape of a stacked value to {out}")
+    if len(out) == 2 and out[0] == 1:
+        return _Stack([jnp.reshape(x, out[1:])])
+    return None
+
+
+def _split_rule(eqn, x):
+    if not isinstance(x, _Stack):
+        return None
+    if eqn.params["axis"] != 0:
+        raise NotImplementedError("split along rays")
+    out, i = [], 0
+    for size in eqn.params["sizes"]:
+        out.append(_Stack(x[i:i + size]))
+        i += size
+    return out
+
+
+def _pad_rule(eqn, x, pad_value):
+    if not isinstance(x, _Stack):
+        return None
+    (lo, hi, interior), *rest = eqn.params["padding_config"]
+    if interior or any(c != (0, 0, 0) for c in rest):
+        raise NotImplementedError("pad of a stacked value along rays")
+    fill = jnp.full_like(x[0], pad_value)
+    return _Stack((fill,) * lo + tuple(x) + (fill,) * hi)
+
+
+def _reduce_sum_rule(eqn, x):
+    if not isinstance(x, _Stack):
+        return None
+    axes = tuple(eqn.params["axes"])
+    if 0 not in axes:
+        return _Stack([jnp.sum(p, axis=tuple(a - 1 for a in axes))
+                       for p in x])
+    total = functools.reduce(jnp.add, x)
+    rest = tuple(a - 1 for a in axes if a)
+    return jnp.sum(total, axis=rest) if rest else total
+
+
+_RULES = {
+    "broadcast_in_dim": _broadcast_rule,
+    "concatenate": _concatenate_rule,
+    "slice": _slice_rule,
+    "squeeze": _squeeze_rule,
+    "reshape": _reshape_rule,
+    "split": _split_rule,
+    "pad": _pad_rule,
+    "reduce_sum": _reduce_sum_rule,
+}
+
+
+def _eval_unstacked(jaxpr, consts, args):
     env = {}
 
     def read(v):
-        return v.val if hasattr(v, "val") else env[v]
+        return v.val if isinstance(v, Literal) else env[v]
 
-    jaxpr = closed.jaxpr
-    for v, c in zip(jaxpr.constvars, closed.consts):
-        env[v] = c
+    def write(v, val):
+        if len(v.aval.shape) >= 2 and not isinstance(val, _Stack):
+            val = _Stack([val[i] for i in range(v.aval.shape[0])])
+        env[v] = val
+
+    for v, c in zip(jaxpr.constvars, consts):
+        write(v, c)
     for v, a in zip(jaxpr.invars, args):
-        env[v] = a
+        write(v, a)
     for eqn in jaxpr.eqns:
-        assert not any(hasattr(p, "jaxpr") for p in eqn.params.values()), (
-            "nested jaxpr inside the window-backward trace; extend "
-            "_depad_call to recurse")
-        invals = [read(v) for v in eqn.invars]
-        prim = eqn.primitive
-        if prim.name == "pad":
-            cfg = eqn.params["padding_config"]
-            if (all(i == 0 for _, _, i in cfg)
-                    and any(lo < 0 or hi < 0 for lo, hi, _ in cfg)):
-                op, pv = invals
-                out = jax.lax.slice(
-                    op,
-                    [max(0, -lo) for lo, _, _ in cfg],
-                    [d + min(0, hi)
-                     for d, (_, hi, _) in zip(op.shape, cfg)])
-                pos = [(max(0, lo), max(0, hi), 0) for lo, hi, _ in cfg]
-                if any(lo or hi for lo, hi, _ in pos):
-                    out = jax.lax.pad(out, pv, pos)
-                env[eqn.outvars[0]] = out
-                continue
-        outs = prim.bind(*invals, **eqn.params)
-        if prim.multiple_results:
-            for v, o in zip(eqn.outvars, outs):
-                env[v] = o
+        ins = [read(v) for v in eqn.invars]
+        stacked = any(isinstance(x, _Stack) for x in ins)
+        rule = _RULES.get(eqn.primitive.name)
+        out = rule(eqn, *ins) if rule is not None else None
+        if out is None:
+            inner = _call_jaxpr(eqn)
+            if inner is not None:
+                out = _eval_unstacked(inner[0], inner[1], ins)
+            elif not stacked:
+                out = eqn.primitive.bind(*ins, **eqn.params)
+            elif _AXIS_PARAMS & set(eqn.params) or any(
+                    hasattr(p, "eqns") or hasattr(p, "jaxpr")
+                    for p in eqn.params.values()):
+                raise NotImplementedError(
+                    f"{eqn.primitive.name} on a stacked value")
+            else:
+                # elementwise: apply per slice, broadcasting unstacked
+                # operands and size-1 stacks
+                n = max(len(x) for x in ins if isinstance(x, _Stack))
+                per = [x * (n // len(x)) if isinstance(x, _Stack)
+                       else (x,) * n for x in ins]
+                res = [eqn.primitive.bind(*a, **eqn.params)
+                       for a in zip(*per)]
+                if eqn.primitive.multiple_results:
+                    out = [_Stack(r) for r in zip(*res)]
+                else:
+                    out = _Stack(res)
+        if eqn.primitive.multiple_results:
+            for v, o in zip(eqn.outvars, out):
+                write(v, o)
         else:
-            env[eqn.outvars[0]] = outs
-    return tuple(read(v) for v in jaxpr.outvars)
+            write(eqn.outvars[0], out)
+    return [read(v) for v in jaxpr.outvars]
 
 
-def _window_bwd_kernel(*refs, dispersion, method, dt, steps, base):
-    """Reverse-mode companion of ``_window_kernel``: pull the window-output
-    cotangent back to the window-input cotangent entirely in VMEM.
+def unstack_call(fn: Callable, args):
+    """Evaluate ``fn(*args)`` with every (n, ...) intermediate held as a
+    list of n arrays of the args' shape.
 
-    In-kernel checkpointed transpose: a forward sweep re-advances the block
-    storing each substep's INPUT state (10 x 8 tiles live for the
-    production window - the coefficients are already resident), then the
-    reverse sweep applies ``jax.vjp`` of ONE substep at a time, so the live
-    residual set is one substep's linearization rather than the whole
-    window's.  This is the XLA remat_substeps structure (solver.py) moved
-    inside the kernel: the backward never round-trips HBM between substeps.
-
-    Ref order: state-in (8), psi (16, rows, lanes), prof (16, rows, lanes),
-    iu, jv, pidx, cotangent (8), then the 8 d_state outputs.
-
-    The frozen blocks/indices are treated as constants (zero cotangent):
-    their only dependence on the window-base state is through the integer
-    cell indices, whose derivative is zero a.e. - exactly what the XLA
-    frozen path's transpose produces through the gather (floor has zero
-    gradient), so the two backward paths agree (tests/test_gradients.py).
+    ``fn`` is traced to a jaxpr over the args' shapes, dead code is
+    dropped, and the jaxpr is re-evaluated primitive by primitive: stacks
+    (``jnp.stack``), component slices, their transposes (pads) and sums
+    over the component axis become list operations, and elementwise
+    primitives apply slice by slice.  What is left binds only primitives
+    over arrays shaped like the args, which a Triton kernel can hold.
+    Returns the flat list of outputs.
     """
-    state_refs = refs[:8]
-    psi_ref, prof_ref = refs[8], refs[9]
-    iu_ref, jv_ref, pidx_ref = refs[10], refs[11], refs[12]
-    ct_refs = refs[13:21]
-    out_refs = refs[21:]
+    closed = jax.make_jaxpr(fn)(
+        *[jax.ShapeDtypeStruct(jnp.shape(a), jnp.result_type(a))
+          for a in args])
+    jaxpr, used = pe.dce_jaxpr(closed.jaxpr,
+                               [True] * len(closed.jaxpr.outvars))
+    kept = [a for a, u in zip(args, used) if u]
+    outs = _eval_unstacked(jaxpr, closed.consts, kept)
+    if any(isinstance(o, _Stack) for o in outs):
+        raise NotImplementedError("a stacked value reached the output")
+    return outs
 
-    def pure_bwd(*args):
-        st0 = args[:8]
-        psi, prof = args[8:24], args[24:40]
-        iu, jv, pidx = args[40:43]
-        ct0 = args[43:51]
-        view = _FrozenView(psi=list(psi), prof=list(prof),
-                           iu=iu, jv=jv, pidx=pidx, base=base)
-        rhs = make_ray_rhs(dispersion, view, holomorphic=False)
-        stepper = STEPPERS[method]
 
-        def substep(leaves):
-            return tuple(stepper(rhs, RayState(*leaves), dt))
+# ---------------------------------------------------------------------------
+# The window kernel
+# ---------------------------------------------------------------------------
+def _window_kernel(*refs, substep, steps, ns):
+    """Advance one block of rays ``steps`` substeps against its frozen
+    coefficients.  Ref order: state (8, or 16 with compensated lo
+    words), psi (16, B), prof (16, B), iu, jv, pidx, then the state
+    outputs."""
+    psi_ref, prof_ref = refs[ns], refs[ns + 1]
+    frozen = ([psi_ref[i, :] for i in range(16)]
+              + [prof_ref[i, :] for i in range(16)]
+              + [r[...] for r in refs[ns + 2:ns + 5]])
 
-        sts = [st0]
-        for _ in range(steps - 1):
-            sts.append(substep(sts[-1]))
-        ct = ct0
-        for s_in in reversed(sts):
-            _, vjp = jax.vjp(substep, s_in)
-            (ct,) = vjp(ct)
-        return ct
+    def body(_, state):
+        return tuple(unstack_call(substep, list(state) + frozen))
 
-    args = (tuple(r[...] for r in state_refs)
-            + tuple(psi_ref[i] for i in range(16))
-            + tuple(prof_ref[i] for i in range(16))
-            + (iu_ref[...], jv_ref[...], pidx_ref[...])
-            + tuple(r[...] for r in ct_refs))
-    for r, v in zip(out_refs, _depad_call(pure_bwd, args)):
+    state = tuple(r[...] for r in refs[:ns])
+    state = jax.lax.fori_loop(0, steps, body, state)
+    for r, v in zip(refs[ns + 5:], state):
         r[...] = v
 
 
-def _window_bwd_tab_kernel(*refs, dispersion, method, dt, steps, base):
-    """``_window_bwd_kernel`` with TABLE cotangents: additionally pulls the
-    output cotangent back onto the frozen coefficient blocks (32 extra
-    output tiles), accumulated across the window's substeps in VMEM.  The
-    caller scatters them into the global spline tables via the transpose
-    of the freeze gather (config5's grads of absorbed power w.r.t. the
-    psi tables; the bicubic/profile values are linear in their blocks, so
-    the block cotangent is exact - same contract as the XLA frozen path,
-    tests/test_gradients.py)."""
-    state_refs = refs[:8]
-    psi_ref, prof_ref = refs[8], refs[9]
-    iu_ref, jv_ref, pidx_ref = refs[10], refs[11], refs[12]
-    ct_refs = refs[13:21]
-    out_refs = refs[21:29]
-    dpsi_ref, dprof_ref = refs[29], refs[30]
-
-    def pure_bwd(*args):
-        st0 = args[:8]
-        psi, prof = args[8:24], args[24:40]
-        iu, jv, pidx = args[40:43]
-        ct0 = args[43:51]
-
-        def substep(leaves, psi_l, prof_l):
-            view = _FrozenView(psi=list(psi_l), prof=list(prof_l),
-                               iu=iu, jv=jv, pidx=pidx, base=base)
-            rhs = make_ray_rhs(dispersion, view, holomorphic=False)
-            return tuple(STEPPERS[method](rhs, RayState(*leaves), dt))
-
-        sts = [st0]
-        for _ in range(steps - 1):
-            sts.append(substep(sts[-1], psi, prof))
-        ct, dpsi, dprof = ct0, None, None
-        for s_in in reversed(sts):
-            _, vjp = jax.vjp(substep, s_in, psi, prof)
-            ct, dp, dq = vjp(ct)
-            dpsi = dp if dpsi is None else tuple(
-                a + b for a, b in zip(dpsi, dp))
-            dprof = dq if dprof is None else tuple(
-                a + b for a, b in zip(dprof, dq))
-        return ct + dpsi + dprof
-
-    args = (tuple(r[...] for r in state_refs)
-            + tuple(psi_ref[i] for i in range(16))
-            + tuple(prof_ref[i] for i in range(16))
-            + (iu_ref[...], jv_ref[...], pidx_ref[...])
-            + tuple(r[...] for r in ct_refs))
-    outs = _depad_call(pure_bwd, args)
-    for r, v in zip(out_refs, outs[:8]):
-        r[...] = v
-    for i in range(16):
-        dpsi_ref[i] = outs[8 + i]
-        dprof_ref[i] = outs[24 + i]
-
-
-def make_frozen_window_step(eq, dispersion: Callable, *, method="rk2",
-                            dt, sub_steps, freeze_every, block_rows=8,
-                            compensated=False, interpret=False,
-                            table_grads=False):
-    """Build the recorded-step function ``carry -> carry`` (sub_steps
-    integrator substeps as ``sub_steps // freeze_every`` windows, each one
-    freeze gather + one multi-substep kernel launch).
+def frozen_window_kernel(eq, dispersion: Callable, *, method, dt, steps,
+                         compensated=False, block=128, num_warps=4,
+                         interpret=False):
+    """Build ``window(carry, psi_table, prof_table) -> carry``: one
+    window-base freeze gather (against the given tables) plus one kernel
+    launch advancing ``steps`` substeps.
 
     ``carry`` is a flat (N,) RayState (or CompCarry of two) with N a
-    multiple of ``block_rows * 128``.  Drop-in replacement for the XLA
-    ``Solver(frozen_cells=True, freeze_every=K)`` step - the freeze
-    semantics (window-base gather, in-window extrapolation contract) are
-    identical; see models/efit.FrozenCellEfit for the error bound.
+    multiple of ``block`` (see :func:`pad_rays`).  ``block`` is the number
+    of rays per program, a power of two; ``num_warps`` sets the threads
+    per program against register pressure (each thread holds
+    block / (32 * num_warps) rays' state and coefficients).
+    ``interpret=True`` runs the kernel through the Pallas interpreter (the
+    CPU test path).
     """
     if method not in ("rk2", "rk4"):
         raise ValueError("frozen window kernel supports rk2/rk4 only")
-    if table_grads and compensated:
-        raise ValueError("table_grads needs the differentiable "
-                         "(non-compensated) window step")
-    if sub_steps % freeze_every:
-        raise ValueError(f"freeze_every={freeze_every} must divide "
-                         f"sub_steps={sub_steps}")
-    if jax.config.jax_enable_x64 and not interpret:
-        # measured on this backend: Mosaic fails to legalize even a
-        # trivial pallas_call under jax_enable_x64 ("failed to legalize
-        # 'func.return'" on (i32, i64) - the x64-traced index types);
-        # the kernel itself is f32-only anyway.
-        raise ValueError(
-            "pallas_window cannot compile with jax_enable_x64 on this "
-            "backend (Mosaic i64 legalization); run the window kernel "
-            "in an x64-disabled context (the production default) or "
-            "use the XLA frozen path for f64")
-    windows = sub_steps // freeze_every
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"block={block} must be a power of two")
 
-    kernel = functools.partial(
-        _window_kernel, dispersion=dispersion, method=method, dt=dt,
-        steps=freeze_every, base=eq, compensated=compensated)
-    bwd_kernel = functools.partial(
-        _window_bwd_kernel, dispersion=dispersion, method=method, dt=dt,
-        steps=freeze_every, base=eq)
+    def substep(*args):
+        ns = 16 if compensated else 8
+        state, (psi, prof, iu, jv, pidx) = args[:ns], (
+            args[ns:ns + 16], args[ns + 16:ns + 32], *args[ns + 32:])
+        view = _FrozenView(psi=list(psi), prof=list(prof), iu=iu, jv=jv,
+                           pidx=pidx, base=eq)
+        rhs = make_ray_rhs(dispersion, view, holomorphic=False)
+        if compensated:
+            step = compensated_stepper(
+                lambda s: INCREMENTS[method](rhs, s, dt))
+            out = step(CompCarry(RayState(*state[:8]),
+                                 RayState(*state[8:])))
+            return tuple(out.hi) + tuple(out.lo)
+        return tuple(STEPPERS[method](rhs, RayState(*state), dt))
 
-    def _rows_of(n):
-        if n % (block_rows * LANES):
-            raise ValueError(
-                f"num_rays={n} must be a multiple of "
-                f"block_rows*{LANES}={block_rows * LANES} "
-                "(pad the ensemble; see pad_rays)")
-        return n // LANES
+    ns = 16 if compensated else 8
+    kernel = functools.partial(_window_kernel, substep=substep,
+                               steps=steps, ns=ns)
 
-    def _tiles(hi, n, rows, psi_table=None, prof_table=None):
-        """One window-base freeze gather, reshaped to kernel tiles:
-        coefficient-leading (16, rows, lanes) blocks + index planes.
-        Explicit ``psi_table``/``prof_table`` substitute the equilibrium's
-        tables (the table_grads path differentiates through this gather:
-        its vjp is the scatter-add onto the global tables)."""
-        eq_ = eq
-        if psi_table is not None:
-            import dataclasses
-            eq_ = dataclasses.replace(eq, psi_coeffs=psi_table,
-                                      profile_coeffs=prof_table)
-        feq = eq_.freeze_cells(jnp.stack([hi.x, hi.y, hi.z]))
-        psi = feq.psi_block.T.reshape(16, rows, LANES)
-        prof = feq.prof_block.reshape(n, 16).T.reshape(16, rows, LANES)
-        iu = feq.iu.reshape(rows, LANES)
-        jv = feq.jv.reshape(rows, LANES)
-        pidx = feq.pidx.reshape(rows, LANES)
-        return psi, prof, iu, jv, pidx
-
-    spec = pl.BlockSpec((block_rows, LANES), lambda i: (i, 0))
-    cspec = pl.BlockSpec((16, block_rows, LANES), lambda i: (0, i, 0))
-
-    def _fwd_impl(leaves, psi_table=None, prof_table=None):
-        """Gather + forward window kernel over flat (n,) leaves."""
-        n = leaves[0].shape[0]
-        rows = _rows_of(n)
-        hi = RayState(*leaves[:8])
-        tiles = _tiles(hi, n, rows, psi_table, prof_table)
-        shaped = [a.reshape(rows, LANES) for a in leaves]
-        ns = len(shaped)
+    def window(carry, psi_table, prof_table):
+        hi = carry.hi if compensated else carry
+        n = hi.x.shape[0]
+        if n % block:
+            raise ValueError(f"num_rays={n} must be a multiple of "
+                             f"block={block} (pad the ensemble; see "
+                             "pad_rays)")
+        feq = dataclasses.replace(
+            eq, psi_coeffs=psi_table, profile_coeffs=prof_table
+        ).freeze_cells(jnp.stack([hi.x, hi.y, hi.z]))
+        psi = feq.psi_block.T                          # (16, n)
+        prof = feq.prof_block.reshape(n, 16).T         # (16, n)
+        leaves = (list(carry.hi) + list(carry.lo) if compensated
+                  else list(carry))
+        spec = pl.BlockSpec((block,), lambda i: (i,))
+        cspec = pl.BlockSpec((16, block), lambda i: (0, i))
         outs = pl.pallas_call(
             kernel,
-            grid=(rows // block_rows,),
+            grid=(n // block,),
             in_specs=[spec] * ns + [cspec, cspec] + [spec] * 3,
             out_specs=[spec] * ns,
-            out_shape=[jax.ShapeDtypeStruct((rows, LANES),
-                                            hi.x.dtype)] * ns,
+            out_shape=[jax.ShapeDtypeStruct((n,), hi.x.dtype)] * ns,
+            backend="triton",
+            compiler_params=pl_triton.CompilerParams(
+                num_warps=num_warps, num_stages=1),
             interpret=interpret,
-        )(*shaped, *tiles)
-        return tuple(o.reshape(n) for o in outs)
-
-    # -- reverse mode: custom_vjp whose backward is itself a VMEM-resident
-    # kernel (in-kernel checkpointed recompute + per-substep transpose).
-    # Residuals are the window INPUTS only - the backward re-freezes from
-    # them, so under the fwd+bwd trace the forward pallas_call in the
-    # transpose sweep has no consumers and XLA dead-code-eliminates it.
-    @jax.custom_vjp
-    def window8(*leaves):
-        return _fwd_impl(leaves)
-
-    def window8_fwd(*leaves):
-        return _fwd_impl(leaves), leaves
-
-    def window8_bwd(leaves, cts):
-        n = leaves[0].shape[0]
-        rows = _rows_of(n)
-        hi = RayState(*leaves)
-        tiles = _tiles(hi, n, rows)
-        shaped = [a.reshape(rows, LANES) for a in leaves]
-        cshaped = [jnp.asarray(c, hi.x.dtype).reshape(rows, LANES)
-                   for c in cts]
-        # The rk4 backward's live set (K stored substep inputs + one
-        # substep's vjp residuals) exceeds Mosaic's default 16 MiB scoped
-        # VMEM budget at block_rows=8 (measured 28.4 MiB); the v5e has
-        # far more physical VMEM, so raise the cap for the backward call.
-        params = (None if interpret else
-                  pltpu.CompilerParams(vmem_limit_bytes=100 * 2 ** 20))
-        outs = pl.pallas_call(
-            bwd_kernel,
-            grid=(rows // block_rows,),
-            in_specs=[spec] * 8 + [cspec, cspec] + [spec] * 3 + [spec] * 8,
-            out_specs=[spec] * 8,
-            out_shape=[jax.ShapeDtypeStruct((rows, LANES),
-                                            hi.x.dtype)] * 8,
-            interpret=interpret,
-            compiler_params=params,
-        )(*shaped, *tiles, *cshaped)
-        return tuple(o.reshape(n) for o in outs)
-
-    window8.defvjp(window8_fwd, window8_bwd)
-
-    # -- table-gradient variant: the spline tables are explicit primal
-    # inputs, so cotangents flow back onto them (config5: grads of
-    # absorbed power w.r.t. the psi tables).  The backward kernel emits
-    # per-ray BLOCK cotangents; the freeze gather's vjp (jax.vjp over
-    # _tiles) scatter-adds them into the global tables.
-    bwd_tab_kernel = functools.partial(
-        _window_bwd_tab_kernel, dispersion=dispersion, method=method,
-        dt=dt, steps=freeze_every, base=eq)
-
-    @jax.custom_vjp
-    def windowt(leaves, psi_table, prof_table):
-        return _fwd_impl(list(leaves), psi_table, prof_table)
-
-    def windowt_fwd(leaves, psi_table, prof_table):
-        return (windowt(leaves, psi_table, prof_table),
-                (leaves, psi_table, prof_table))
-
-    def windowt_bwd(res, cts):
-        leaves, psi_table, prof_table = res
-        n = leaves[0].shape[0]
-        rows = _rows_of(n)
-        hi = RayState(*leaves)
-        tiles, gather_vjp = jax.vjp(
-            lambda pt, qt: _tiles(hi, n, rows, pt, qt),
-            psi_table, prof_table)
-        shaped = [a.reshape(rows, LANES) for a in leaves]
-        cshaped = [jnp.asarray(c, hi.x.dtype).reshape(rows, LANES)
-                   for c in cts]
-        params = (None if interpret else
-                  pltpu.CompilerParams(vmem_limit_bytes=100 * 2 ** 20))
-        outs = pl.pallas_call(
-            bwd_tab_kernel,
-            grid=(rows // block_rows,),
-            in_specs=[spec] * 8 + [cspec, cspec] + [spec] * 3 + [spec] * 8,
-            out_specs=[spec] * 8 + [cspec, cspec],
-            out_shape=([jax.ShapeDtypeStruct((rows, LANES),
-                                             hi.x.dtype)] * 8
-                       + [jax.ShapeDtypeStruct((16, rows, LANES),
-                                               hi.x.dtype)] * 2),
-            interpret=interpret,
-            compiler_params=params,
-        )(*shaped, *tiles, *cshaped)
-        d_leaves = tuple(o.reshape(n) for o in outs[:8])
-        # scatter the block cotangents into the tables (iu/jv/pidx carry
-        # zero cotangent: frozen integer indices)
-        zero = jnp.zeros((rows, LANES), hi.x.dtype)
-        d_psi_table, d_prof_table = gather_vjp(
-            (outs[8], outs[9], zero, zero, zero))
-        return d_leaves, d_psi_table, d_prof_table
-
-    windowt.defvjp(windowt_fwd, windowt_bwd)
-
-    def window(carry):
+            name="efit_frozen_window",
+        )(*leaves, psi, prof, feq.iu, feq.jv, feq.pidx)
         if compensated:
-            # compensated stays forward-only: the TwoSum error extraction
-            # is numerically meaningless to differentiate (its exact
-            # transpose reconstructs the plain-rk gradient at 2x the cost)
-            hi = carry.hi
-            n = hi.x.shape[0]
-            rows = _rows_of(n)
-            leaves = list(hi) + list(carry.lo)
-            flat = _fwd_impl(leaves)
-            return CompCarry(RayState(*flat[:8]), RayState(*flat[8:]))
-        if table_grads:
-            return RayState(*windowt(tuple(carry), eq.psi_coeffs,
-                                     eq.profile_coeffs))
-        return RayState(*window8(*carry))
+            return CompCarry(RayState(*outs[:8]), RayState(*outs[8:]))
+        return RayState(*outs)
 
-    def step(carry):
-        if windows == 1:
-            return window(carry)
-
-        def body(c, _):
-            return window(c), None
-
-        c, _ = jax.lax.scan(body, carry, None, length=windows)
-        return c
-
-    return step
+    return window
 
 
-def pad_rays(state, block_rows=8):
-    """Pad a flat RayState up to a multiple of ``block_rows * 128`` by
-    repeating rays cyclically (gather-produced buffers - freshly allocated,
-    avoiding the measured 30x pad-buffer slowdown of jnp.pad views on this
-    backend).  Returns (padded_state, original_n)."""
+def differentiable_window(kernel_window: Callable, xla_window: Callable,
+                          eq):
+    """``carry -> carry`` running ``kernel_window`` forward, with a
+    ``custom_vjp`` whose backward is ``jax.vjp`` of
+    ``xla_window(carry, eq)`` - the same window through XLA.  The spline
+    tables are primal inputs, so table gradients flow too."""
+
+    def xla(carry, psi_table, prof_table):
+        return xla_window(carry, dataclasses.replace(
+            eq, psi_coeffs=psi_table, profile_coeffs=prof_table))
+
+    @jax.custom_vjp
+    def window(carry, psi_table, prof_table):
+        return kernel_window(carry, psi_table, prof_table)
+
+    def fwd(carry, psi_table, prof_table):
+        return (kernel_window(carry, psi_table, prof_table),
+                (carry, psi_table, prof_table))
+
+    def bwd(res, ct):
+        return jax.vjp(xla, *res)[1](ct)
+
+    window.defvjp(fwd, bwd)
+    return lambda carry: window(carry, eq.psi_coeffs, eq.profile_coeffs)
+
+
+def pad_rays(state, block=128):
+    """Pad a flat RayState up to a multiple of ``block`` rays by repeating
+    rays cyclically.  Returns (padded_state, original_n)."""
     n = state.x.shape[0]
-    unit = block_rows * LANES
-    m = ((n + unit - 1) // unit) * unit
+    m = -(-n // block) * block
     if m == n:
         return state, n
     idx = jnp.arange(m) % n

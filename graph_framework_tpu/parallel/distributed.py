@@ -1,11 +1,10 @@
 """Multi-host initialization and per-host sharded output.
 
 The reference is strictly single-node (SURVEY.md section 2.6: std::thread
-per device, no MPI/NCCL anywhere); multi-host is new capability for the
-TPU build.  One call sets up the jax.distributed runtime; the same SPMD
-trace code then spans all hosts of a pod slice, with the ray axis sharded
-over every chip and the only collective (the Newton ensemble-max) riding
-ICI.
+per device, no MPI/NCCL anywhere); multi-host is new capability here.
+One call sets up the jax.distributed runtime; the same SPMD trace code
+then spans all hosts, with the ray axis sharded over every device and the
+only collective (the Newton ensemble-max) an all-reduce.
 
 Output follows the reference's file-per-worker scheme (result<n>.nc per
 device thread, xrays.cpp:461): each host writes the rows of its addressable
@@ -25,8 +24,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize the multi-host runtime (no-op if single-process).
 
-    With no arguments, jax.distributed auto-detects the TPU pod environment
-    variables; explicit arguments support manual bring-up.
+    With no arguments, jax.distributed auto-detects a cluster environment
+    it knows; elsewhere pass coordinator_address, num_processes and
+    process_id explicitly.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -1,6 +1,6 @@
 """Data-parallel ray sharding over a device mesh.
 
-TPU-native replacement for the reference's thread-per-device data
+Replacement for the reference's thread-per-device data
 parallelism (reference: graph_driver/xrays.cpp:419-527 - one std::thread,
 graph, JIT context and NetCDF file per CUDA/Metal device, rays split
 batch = N/devices, zero communication).  Here a single SPMD program runs on
@@ -8,7 +8,7 @@ every chip: the ray axis is sharded over a 1D ``Mesh("rays")``, equilibrium
 tables are replicated, and XLA inserts the only collective the workload
 needs - the ensemble-max in the Newton convergence loop (the reference's
 per-device max-reduction kernel, cuda_context.hpp:954-995) - as an
-all-reduce over ICI.
+all-reduce.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the mesh
 and the same code spans hosts; per-host output shards mirror the
@@ -80,8 +80,6 @@ def make_blocked_sharded_fn(solver, num_steps: int, mesh: Mesh,
     (see :func:`run_blocked_sharded`).  Build ONCE and reuse when timing:
     each call to run_blocked_sharded constructs a fresh jit wrapper whose
     retrace would pollute a measurement."""
-    from jax.experimental.shard_map import shard_map
-
     spec = P(RAY_AXIS)
     step = solver.raw_step_fn()
 
@@ -112,8 +110,8 @@ def make_blocked_sharded_fn(solver, num_steps: int, mesh: Mesh,
                 lambda a: a.reshape((-1,) + a.shape[2:]), s)
         return s
 
-    fn = shard_map(local_run, mesh=mesh, in_specs=(spec,),
-                   out_specs=spec, check_rep=False)
+    fn = jax.shard_map(local_run, mesh=mesh, in_specs=(spec,),
+                       out_specs=spec, check_vma=False)
     return jax.jit(fn)
 
 

@@ -127,72 +127,58 @@ def bicubic_spline_coeffs(f, *, local=False):
     return cr.astype(np.float64)
 
 
-def write_efit_file(path, *, r, z, psi, psi_profile, ne, te, pressure,
-                    fpol):
-    """Write an EFIT spline file in the reference's format.
+def _uniform_step(g, name):
+    d = np.diff(g)
+    if not np.allclose(d, d[0], rtol=1e-10, atol=0.0):
+        raise ValueError(f"{name} grid must be uniform")
+    return float(d[0])
+
+
+def efit_tables(*, r, z, psi, psi_profile, ne, te, pressure, fpol):
+    """The tables of an EFIT spline file in the reference's format, as a
+    mapping of dataset name to float64 array.
 
     ``r``/``z``: uniform 1D grids [m]; ``psi``: (nr, nz) flux samples;
     ``psi_profile``: uniform 1D grid of psi values the profile samples live
     on; ``ne``/``te``/``pressure``/``fpol``: 1D profile samples on that
     grid (SI units; ne/te/pressure are normalized by their max into the
-    file's ``*_scale`` scalars, as the reference's files are).
+    ``*_scale`` scalars, as the reference's files are).
 
-    Readable by :func:`models.efit.make_efit` (loader keys:
+    :func:`models.efit.make_efit` takes the mapping directly or the file
+    :func:`write_tables` makes of it (loader keys:
     equilibrium.hpp:1627-1844).
     """
-    import h5py
-
     r = np.asarray(r, dtype=np.float64)
     z = np.asarray(z, dtype=np.float64)
     psi_profile = np.asarray(psi_profile, dtype=np.float64)
-
-    def uniform_step(g, name):
-        d = np.diff(g)
-        if not np.allclose(d, d[0], rtol=1e-10, atol=0.0):
-            raise ValueError(f"{name} grid must be uniform")
-        return float(d[0])
-
-    dr = uniform_step(r, "r")
-    dz = uniform_step(z, "z")
-    dpsi = uniform_step(psi_profile, "psi_profile")
-
+    out = {"rmin": r[0], "dr": _uniform_step(r, "r"),
+           "zmin": z[0], "dz": _uniform_step(z, "z"),
+           "psimin": psi_profile[0],
+           "dpsi": _uniform_step(psi_profile, "psi_profile")}
     psi_tables = bicubic_spline_coeffs(psi)
-
-    with h5py.File(path, "w") as h:
-        def scalar(name, v):
-            h.create_dataset(name, data=np.float64(v))
-
-        scalar("rmin", r[0])
-        scalar("dr", dr)
-        scalar("zmin", z[0])
-        scalar("dz", dz)
-        scalar("psimin", psi_profile[0])
-        scalar("dpsi", dpsi)
-        for a in range(4):
-            for b in range(4):
-                h.create_dataset(f"psi_c{a}{b}", data=psi_tables[a, b])
-        # loader scale keys: ne_scale/te_scale/pres_scale; fpol unscaled
-        for name, scale_key, samples in (
-                ("ne", "ne_scale", ne), ("te", "te_scale", te),
-                ("pressure", "pres_scale", pressure),
-                ("fpol", None, fpol)):
-            samples = np.asarray(samples, dtype=np.float64)
-            if scale_key is not None:
-                scale = float(np.max(np.abs(samples))) or 1.0
-                scalar(scale_key, scale)
-            else:
-                scale = 1.0
-            tabs = cubic_spline_coeffs(samples / scale)
-            for k in range(4):
-                h.create_dataset(f"{name}_c{k}", data=tabs[k])
-    return path
+    for a in range(4):
+        for b in range(4):
+            out[f"psi_c{a}{b}"] = psi_tables[a, b]
+    # loader scale keys: ne_scale/te_scale/pres_scale; fpol unscaled
+    for name, scale_key, samples in (
+            ("ne", "ne_scale", ne), ("te", "te_scale", te),
+            ("pressure", "pres_scale", pressure), ("fpol", None, fpol)):
+        samples = np.asarray(samples, dtype=np.float64)
+        scale = 1.0
+        if scale_key is not None:
+            scale = float(np.max(np.abs(samples))) or 1.0
+            out[scale_key] = scale
+        tabs = cubic_spline_coeffs(samples / scale)
+        for k in range(4):
+            out[f"{name}_c{k}"] = tabs[k]
+    return {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
 
 
-def write_vmec_file(path, *, s_full, s_half, chi, rmnc, zmns, lmns,
-                    xm, xn, signj, dphi):
-    """Write a VMEC spline file in the reference's format
-    (make_vmec loader keys, equilibrium.hpp:2424-2651; replaces
-    utilities/VMECSplines.nb).
+def vmec_tables(*, s_full, s_half, chi, rmnc, zmns, lmns, xm, xn, signj,
+                dphi):
+    """The tables of a VMEC spline file in the reference's format (make_vmec
+    loader keys, equilibrium.hpp:2424-2651; replaces
+    utilities/VMECSplines.nb), as a mapping of dataset name to array.
 
     ``s_full``/``s_half``: uniform radial grids (full / half mesh);
     ``chi``: poloidal-flux samples on the full grid; ``rmnc``/``zmns``:
@@ -202,19 +188,10 @@ def write_vmec_file(path, *, s_full, s_half, chi, rmnc, zmns, lmns,
     Radial cubic splines are fitted per mode (natural BC) and stored in the
     global normalized coordinate, as :func:`models.vmec.make_vmec` expects.
     """
-    import h5py
-
     s_full = np.asarray(s_full, dtype=np.float64)
     s_half = np.asarray(s_half, dtype=np.float64)
-
-    def uniform_step(g, name):
-        d = np.diff(g)
-        if not np.allclose(d, d[0], rtol=1e-10, atol=0.0):
-            raise ValueError(f"{name} grid must be uniform")
-        return float(d[0])
-
-    ds = uniform_step(s_full, "s_full")
-    dsh = uniform_step(s_half, "s_half")
+    ds = _uniform_step(s_full, "s_full")
+    dsh = _uniform_step(s_half, "s_half")
     if not np.isclose(ds, dsh, rtol=1e-10):
         raise ValueError("full and half mesh must share the step ds")
 
@@ -223,23 +200,88 @@ def write_vmec_file(path, *, s_full, s_half, chi, rmnc, zmns, lmns,
         c = cubic_spline_coeffs(np.asarray(samples, dtype=np.float64).T)
         return np.moveaxis(c, 2, 1)    # (4, ns-1, m) -> (4, m, ns-1)
 
-    with h5py.File(path, "w") as h:
-        def scalar(name, v):
-            h.create_dataset(name, data=np.float64(v))
-
-        scalar("signj", signj)
-        scalar("dphi", dphi)
-        scalar("sminf", s_full[0])
-        scalar("sminh", s_half[0])
-        scalar("ds", ds)
-        h.create_dataset("xm", data=np.asarray(xm, dtype=np.float64))
-        h.create_dataset("xn", data=np.asarray(xn, dtype=np.float64))
-        chi_tabs = cubic_spline_coeffs(np.asarray(chi, dtype=np.float64))
+    out = {"signj": signj, "dphi": dphi, "sminf": s_full[0],
+           "sminh": s_half[0], "ds": ds, "xm": xm, "xn": xn}
+    chi_tabs = cubic_spline_coeffs(np.asarray(chi, dtype=np.float64))
+    for k in range(4):
+        out[f"chi_c{k}"] = chi_tabs[k]
+    for name, samples in (("rmnc", rmnc), ("zmns", zmns), ("lmns", lmns)):
+        tabs = mode_tables(samples)
         for k in range(4):
-            h.create_dataset(f"chi_c{k}", data=chi_tabs[k])
-        for name, samples in (("rmnc", rmnc), ("zmns", zmns),
-                              ("lmns", lmns)):
-            tabs = mode_tables(samples)
-            for k in range(4):
-                h.create_dataset(f"{name}_c{k}", data=tabs[k])
+            out[f"{name}_c{k}"] = tabs[k]
+    return {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
+
+
+def write_tables(path, tables):
+    """Write a mapping of dataset name to array as a NetCDF4/HDF5 file
+    (the format make_efit/make_vmec read from a path)."""
+    import h5py
+
+    with h5py.File(path, "w") as h:
+        for name, data in tables.items():
+            h.create_dataset(name, data=data)
     return path
+
+
+def write_efit_file(path, **samples):
+    """Write an EFIT spline file: :func:`efit_tables` of the samples."""
+    return write_tables(path, efit_tables(**samples))
+
+
+def write_vmec_file(path, **samples):
+    """Write a VMEC spline file: :func:`vmec_tables` of the samples."""
+    return write_tables(path, vmec_tables(**samples))
+
+
+def tokamak_samples(seed=0, *, nr=65, nz=65, npsi=65):
+    """Grid samples of a seeded DIII-D-sized tokamak equilibrium.
+
+    Geometry and field follow DIII-D's published size: major radius
+    1.67 m, minor radius 0.67 m, elongation 1.8, toroidal field 2.0 T on
+    axis, on an EFIT-style grid R in [0.84, 2.54] m, Z in [-1.6, 1.6] m.
+    ``nr`` x ``nz`` samples give (nr-1) x (nz-1) bicubic cells (64 x 64 =
+    4,096 by default, the reference file's resolution).  The flux is a
+    Solov'ev-like ellipse with a Shafranov shift plus a few low-order
+    ripples whose amplitudes come from ``seed``; psi = 0 on the axis and
+    0.25 Wb/rad on the last closed surface (a poloidal field of about
+    0.3 T at the outboard edge).  Profiles fall off as (1 - psi^2)^3 to a
+    floor of 1e-3 of the core value outside the plasma, so rays launched
+    at R = 2.5 m start in near vacuum.  The density and temperature
+    profiles share one normalized shape, which makes the reference
+    loader's ne/te table quirk (make_efit replicate_reference_quirks)
+    harmless.
+
+    Returns the keyword arguments of :func:`efit_tables`.
+    """
+    rng = np.random.default_rng(seed)
+    r0, a, kappa, b0, psi_edge = 1.67, 0.67, 1.8, 2.0, 0.25
+    shift = 0.05 * (1.0 + 0.2 * rng.uniform(-1.0, 1.0))
+    ripple = 0.01 * rng.uniform(-1.0, 1.0, size=(3, 2))
+    r = np.linspace(0.84, 2.54, nr)
+    z = np.linspace(-1.6, 1.6, nz)
+    rr, zz = np.meshgrid(r, z, indexing="ij")
+    rho2 = (((rr - r0 - shift * (1.0 - ((rr - r0) / a) ** 2)) / a) ** 2
+            + (zz / (kappa * a)) ** 2)
+    theta = np.arctan2(zz / kappa, rr - r0)
+    psi = psi_edge * rho2 * (1.0 + sum(
+        rho2 * (ripple[m, 0] * np.cos((m + 2) * theta)
+                + ripple[m, 1] * np.sin((m + 2) * theta))
+        for m in range(3)))
+    psi_profile = np.linspace(0.0, float(psi.max()) * 1.01, npsi)
+    psin = psi_profile / psi_edge
+    shape = (1.0 - 1e-3) * np.clip(1.0 - psin ** 2, 0.0, None) ** 3 + 1e-3
+    ne0 = 1.0e19 * (1.0 + 0.1 * rng.uniform(-1.0, 1.0))
+    te0 = 3.0e3 * (1.0 + 0.1 * rng.uniform(-1.0, 1.0))
+    ne = ne0 * shape
+    te = te0 * shape
+    pressure = 2.0 * 1.60218e-19 * ne * te
+    # toroidal field function F = R B_phi with a weak diamagnetic dip
+    fpol = r0 * b0 * (1.0 - 0.02 * shape)
+    return dict(r=r, z=z, psi=psi, psi_profile=psi_profile, ne=ne, te=te,
+                pressure=pressure, fpol=fpol)
+
+
+def tokamak_tables(seed=0, **grid):
+    """EFIT tables of :func:`tokamak_samples` (the mapping make_efit
+    takes in place of a file)."""
+    return efit_tables(**tokamak_samples(seed, **grid))

@@ -106,8 +106,8 @@ def device_info() -> List[str]:
 # The reference offers two defensive layers: CMake sanitizer builds with
 # sync-after-async CUDA checking (CMakeLists.txt:104-130,
 # cuda_context.hpp:100-107) and the SAFE_MATH template parameter scrubbing
-# NaN on every kernel store (cuda_context.hpp:883-899).  The TPU-native
-# equivalent of the *diagnostic* layer is jax.experimental.checkify: under
+# NaN on every kernel store (cuda_context.hpp:883-899).  The
+# equivalent of the *diagnostic* layer here is jax.experimental.checkify: under
 # debug mode every jitted hot path is checkify-wrapped with float_checks,
 # so the FIRST NaN/inf raises a Python error locating the failing primitive
 # instead of silently poisoning the trajectory.  (The *production* scrub

@@ -108,7 +108,7 @@ def test_bin_power_monotone_decay():
 
 
 def test_split_complex_weak_damping_matches_native():
-    """The complex-free TPU path (real-argument Z via Rybicki Dawson) must
+    """The complex-free path (real-argument Z via Rybicki Dawson) must
     equal the native-complex weak damping, including nonzero Landau/
     cyclotron damping near resonance."""
     eq = make_slab()
@@ -225,9 +225,8 @@ def test_split_root_finder_nonconvergence_surfaced():
 
 
 def test_run_absorption_split_matches_native(tmp_path):
-    """The split=True run_absorption path (what the TPU backend auto-
-    selects for the CLI's phase 2) writes the same kamp as the native-
-    complex path, at f32 tolerance."""
+    """The split=True run_absorption path writes the same kamp as the
+    native-complex path, at f32 tolerance."""
     import jax.numpy as jnp
     from graph_framework_tpu.io.output import ResultFile
     from graph_framework_tpu.models.absorption import run_absorption

@@ -107,10 +107,9 @@ def test_xrays_rejects_unknown_option():
 
 
 def test_xrays_production_flags_vmec(tmp_path):
-    """--vmec_fused (Pallas geometry, interpret mode on CPU) and
-    --compensated (double-word state accumulation) through the CLI: the
-    trace runs, writes the schema, and the endpoint matches the default
-    path at f32 tolerance."""
+    """--compensated (double-word state accumulation) through the CLI on
+    VMEC: the trace runs, writes the schema, and the endpoint matches the
+    default path at f32 tolerance."""
     common = ["--dispersion=cold_plasma", "--equilibrium=vmec",
               "--equilibrium_file=/root/reference/graph_tests/vmec.nc",
               "--num_rays=4", "--num_times=10", "--sub_steps=5",
@@ -119,8 +118,7 @@ def test_xrays_production_flags_vmec(tmp_path):
     default_dir = tmp_path / "d"
     default_dir.mkdir()
     out_d, _ = run_xrays(default_dir, *common)
-    out_f, _ = run_xrays(tmp_path, *common, "--vmec_fused",
-                         "--compensated")
+    out_f, _ = run_xrays(tmp_path, *common, "--compensated")
     d = read_all(out_d, ["x", "kx"])
     f = read_all(out_f, ["x", "kx"])
     np.testing.assert_allclose(f["x"], d["x"], rtol=5e-4, atol=5e-5)
@@ -155,12 +153,11 @@ def test_xrays_production_flags_efit_frozen(tmp_path):
 
 
 def test_production_stack_endpoint_accuracy(tmp_path):
-    """The TPU production-stack configuration (frozen rk2 + freeze window
-    + compensated + Pallas window kernel - the CLI's TPU default; here
-    passed explicitly since tests run on CPU where the default stays
-    portable) reproduces the portable f64 rk4 endpoint to well below the
-    f32 noise floor - the 'faster AND more accurate' claim the default
-    flip rests on."""
+    """The production-stack configuration (frozen rk2 + freeze window +
+    compensated + window kernel - the CLI's GPU default; here passed
+    explicitly since tests run on CPU where the default stays portable)
+    reproduces the portable f64 rk4 endpoint to well below the f32 noise
+    floor - the 'faster AND more accurate' claim the default rests on."""
     # dt = endtime/num_times = 1e-4, the validated bench step size (the
     # rk2-equal-accuracy and freeze-window bounds are dt-dependent:
     # at 50x this dt the rk2-vs-rk4 truncation gap alone is ~1e-3)
@@ -174,12 +171,12 @@ def test_production_stack_endpoint_accuracy(tmp_path):
     prod = tmp_path / "prod.nc"
     run_xrays(tmp_path, *common, f"--output={prod}", "--solver=rk2",
               "--frozen_cells", "--freeze_every=10", "--compensated",
-              "--pallas_window", "--pallas_block_rows=2", "--f32")
+              "--pallas_window", "--pallas_block=32", "--f32")
     ref = read_all(ref_out, ["x", "y", "z"])
     got = read_all(prod, ["x", "y", "z"])
     for k in ("x", "y", "z"):
         assert got[k].shape == ref[k].shape
         dev = np.max(np.abs(got[k][-1] - ref[k][-1]))
-        # f32 noise floor for this config is ~1e-4 (NOTES_r4 item 2);
-        # the compensated production stack must sit well below it
+        # f32 noise floor for this config is ~1e-4; the compensated
+        # production stack must sit well below it
         assert dev < 2.0e-5, (k, dev)

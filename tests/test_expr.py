@@ -174,7 +174,7 @@ def test_is_match_structural_equality():
 def test_random_statistical_quality():
     """Autocorrelation bound on the uniform stream (random_test.cpp:29-80:
     the reference checks lag autocorrelations of its MT kernel stay small;
-    same bound applied to the counter-based TPU generator)."""
+    same bound applied to the counter-based generator)."""
     r = g.random(20000, seed=11)
     x = np.asarray(r.evaluate())
     assert 0.45 < x.mean() < 0.55

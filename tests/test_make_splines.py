@@ -128,3 +128,66 @@ def test_vmec_file_roundtrip(tmp_path):
     np.testing.assert_allclose(
         float(eq.chi(jnp.asarray(0.6))) - float(eq.chi(jnp.asarray(0.2))),
         0.7 * 0.4, rtol=1e-10)
+
+
+def test_make_efit_from_mapping_equals_from_file(tmp_path):
+    from graph_framework_tpu.tools.make_splines import (
+        tokamak_tables, write_tables)
+    tables = tokamak_tables(seed=3, nr=17, nz=17, npsi=17)
+    path = write_tables(tmp_path / "efit.nc", tables)
+    a, b = make_efit(tables), make_efit(str(path))
+    for f in ("psi_coeffs", "profile_coeffs", "ne_coeffs", "fpol_coeffs"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)))
+    assert (a.rmin, a.dr, a.psimin, a.ne_scale) == \
+        (b.rmin, b.dr, b.psimin, b.ne_scale)
+
+
+def test_make_vmec_from_mapping_equals_from_file(tmp_path):
+    from graph_framework_tpu.models.vmec import make_vmec
+    from graph_framework_tpu.tools.make_splines import (
+        vmec_tables, write_tables)
+    ns = 11
+    s_full = np.linspace(0.0, 1.0, ns)
+    s_half = s_full - 0.05
+    tables = vmec_tables(
+        s_full=s_full, s_half=s_half, chi=0.7 * s_full,
+        rmnc=np.stack([np.full(ns, 3.0), 0.5 * s_full]),
+        zmns=np.stack([np.zeros(ns), 0.4 * s_full]),
+        lmns=np.stack([np.zeros(ns), 0.1 * s_half]),
+        xm=np.array([0.0, 1.0]), xn=np.array([0.0, 0.0]),
+        signj=-1.0, dphi=0.9)
+    path = write_tables(tmp_path / "vmec.nc", tables)
+    a, b = make_vmec(tables), make_vmec(str(path))
+    for f in ("chi_coeffs", "rmnc_coeffs", "zmns_coeffs", "lmns_coeffs"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)))
+    assert (a.ds, a.sminf, a.signj) == (b.ds, b.sminf, b.signj)
+
+
+def test_generated_tokamak_keeps_the_smoke_launch_in_domain():
+    """The chip_smoke.py launch (w=650 from R=2.0 m, Newton kx) on the
+    generated equilibrium: rays stay finite and inside the psi table over
+    10 x 10 substeps, and the bench launch (R=2.5 m) starts in near
+    vacuum (n^2 = 1, so kx solves to -sqrt(500^2 - 150^2))."""
+    import jax
+    from graph_framework_tpu.models.dispersion import cold_plasma
+    from graph_framework_tpu.solver import Solver, init_k, make_ray_state
+    from graph_framework_tpu.tools.make_splines import tokamak_tables
+
+    eq = make_efit(tokamak_tables())
+    assert eq.psi_coeffs.shape[:2] == (64, 64)
+    rng = np.random.default_rng(0)
+    st = init_k(make_ray_state(
+        32, w=650.0, x=2.0 + 0.01 * rng.standard_normal(32), y=0.0,
+        z=0.02 * rng.standard_normal(32), kx=-400.0,
+        ky=150.0 + 2.0 * rng.standard_normal(32), kz=0.0),
+        cold_plasma, eq, "kx")
+    out = Solver(cold_plasma, eq, method="rk4", dt=1e-4,
+                 sub_steps=10).run(st, 10)
+    assert bool(jax.numpy.all(eq.in_domain(out.x, out.y, out.z)))
+    assert np.isfinite(np.asarray(out.kx)).all()
+    vac = init_k(make_ray_state(1, w=500.0, x=2.5, kx=-500.0, ky=150.0),
+                 cold_plasma, eq, "kx")
+    np.testing.assert_allclose(float(vac.kx[0]),
+                               -np.sqrt(500.0 ** 2 - 150.0 ** 2), rtol=2e-3)

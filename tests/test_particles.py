@@ -100,38 +100,43 @@ def test_pic_run_smoke():
     assert float(jnp.max(st.n)) > 0
 
 
-def test_pallas_deposit_matches_reference():
-    """The Pallas deposit kernel (interpret mode on CPU; compiled on TPU)
-    equals the dense direct sum."""
-    import graph_framework_tpu.pallas.deposit as dep
+def test_boris_chunked_scan_matches_step_loop():
+    """The korc bench's chunked lax.scan push (the plain XLA path that
+    replaced the multi-step kernel) equals the eager step loop."""
+    from graph_framework_tpu.models.equilibrium import make_slab
+    eq = make_slab()
+    rng = np.random.default_rng(5)
+    n = 64
+    st = initialize_gamma(ParticleState(
+        x=jnp.asarray(1.7 + 0.01 * rng.standard_normal(n)),
+        y=jnp.zeros(n), z=jnp.zeros(n), ux=jnp.zeros(n),
+        uy=jnp.full(n, 0.99), uz=jnp.full(n, 0.1), gamma=jnp.ones(n)))
+    step = make_boris_step(eq, float(eq.characteristic_field()), 0.5, 1.0)
 
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.normal(0, 0.25, 4096), jnp.float64)
-    mask = jnp.ones(4096)
-    num_grid = 64
+    @jax.jit
+    def chunk(s):
+        return jax.lax.scan(lambda c, _: (step(c), None), s, None,
+                            length=10)[0]
+
+    loop = st
+    for _ in range(20):
+        loop = step(loop)
+    scanned = chunk(chunk(st))
+    for f in ParticleState._fields:
+        np.testing.assert_allclose(np.asarray(getattr(scanned, f)),
+                                   np.asarray(getattr(loop, f)),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_make_deposit_is_the_dense_deposit():
+    """make_deposit builds the dense XLA deposit over its own grid."""
+    rng = np.random.default_rng(4)
+    x = jnp.asarray(rng.normal(0, 0.25, 300), jnp.float64)
+    num_grid = 32
     scale = 2.0 / (num_grid - 1)
+    dep = pic.make_deposit(num_grid, scale, -1.0, jnp.float64)
     grid = -1.0 + scale * jnp.arange(num_grid, dtype=jnp.float64)
-    n, e = dep.deposit_pallas(x, mask, grid, block=2048, tile=64,
-                              interpret=jax.default_backend() == "cpu")
-    dxm = np.asarray(x)[None, :] - np.asarray(grid)[:, None]
-    np.testing.assert_allclose(np.asarray(n),
-                               np.exp(-dxm ** 2 / 1e-4).sum(1), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(e), (2.0 * dxm / 1e-4).sum(1),
-                               rtol=1e-12)
-
-
-def test_pic_run_pallas_deposit_matches_dense():
-    """run_pic(deposit_method="pallas") - the xpic --deposit=pallas path -
-    produces the same evolution as the XLA dense deposit (interpret mode
-    on CPU; the compiled kernel on TPU)."""
-    kw = dict(num_particles=2000, num_grid=64, num_steps=3,
-              dt=1e-9, dtype=jnp.float32)
-    st_d = pic.run_pic(deposit_method="dense", **kw)
-    st_p = pic.run_pic(deposit_method="pallas", **kw)
-    np.testing.assert_allclose(np.asarray(st_p.n), np.asarray(st_d.n),
-                               rtol=2e-6)
-    np.testing.assert_allclose(np.asarray(st_p.epara),
-                               np.asarray(st_d.epara),
-                               rtol=2e-5, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(st_p.x), np.asarray(st_d.x),
-                               rtol=1e-5, atol=1e-7)
+    n, e = dep(x)
+    n_ref, e_ref = pic.deposit(x, grid, scale, -1.0)
+    np.testing.assert_allclose(np.asarray(n), np.asarray(n_ref), rtol=1e-14)
+    np.testing.assert_allclose(np.asarray(e), np.asarray(e_ref), rtol=1e-14)

@@ -241,7 +241,7 @@ def test_weak_damping_kamp_matches_referee():
 
 def test_root_finder_kamp_matches_referee():
     """Complex-Newton kamp roots of the FULL hot-plasma D (split-complex
-    TPU path, absorption.hpp:145-317) match the referee's wofz-based
+    path, absorption.hpp:145-317) match the referee's wofz-based
     complex Newton from the same a = 0 start."""
     gold = load("golden_rootfind_efit")
     from graph_framework_tpu.models.absorption import make_root_finder_split

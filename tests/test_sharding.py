@@ -127,32 +127,6 @@ def test_scaling_efficiency_smoke():
     assert "all-reduce" not in hlo and "all-gather" not in hlo
 
 
-def test_fused_vmec_geometry_shards(vmec_file):
-    """The fused Pallas VMEC geometry composes with ray-axis sharding:
-    the sharded trace equals the single-device one (interpret-mode
-    kernel on the virtual CPU mesh; on real chips the same program
-    partitions the ray axis across Mosaic kernel launches)."""
-    import dataclasses
-    from graph_framework_tpu.models.vmec import make_vmec
-
-    eq = dataclasses.replace(
-        make_vmec(vmec_file, dtype=jnp.float32), fused_mode_sums=True)
-    n = 8 * 16
-    st = make_ray_state(n, w=900.0,
-                        x=jnp.linspace(0.3, 0.7, n),
-                        y=0.5, z=0.0, kx=54.6, ky=0.0, kz=0.0,
-                        dtype=jnp.float32)
-    sol = Solver(disp.cold_plasma, eq, method="rk4", dt=2e-7, sub_steps=2)
-    single = sol.step_fn()(st)
-    mesh = ray_mesh()
-    sharded = sol.step_fn()(shard_rays(st, mesh))
-    for f in st._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(sharded, f)),
-            np.asarray(getattr(single, f)), rtol=1e-6, atol=1e-7,
-            err_msg=f)
-
-
 def test_run_blocked_sharded_matches_plain(efit_file):
     """run_blocked_sharded (shard_map over the ray mesh + per-device
     ensemble blocking, the pod-scale production composition) is a pure

@@ -208,7 +208,7 @@ def test_init_k_returns_diagnostics():
 def test_init_k_dtype_aware_default_tolerance(efit_file):
     """init_k's default tolerance is dtype-aware (solver.init_k
     docstring): the reference's 1e-30 is below f32 resolution, and
-    measured on TPU the spent iterations wandered the Newton root to a
+    the spent iterations can wander the Newton root to a
     neighbouring dispersion branch whose trajectory is singular.  The
     f32 default must land on the same root as an explicit
     dtype-resolvable tolerance."""
