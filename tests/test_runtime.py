@@ -21,7 +21,7 @@ def test_kernels_compile_on_gpu_and_interpret_on_cpu(platform, interpret):
 
 def test_kernels_refuse_other_platforms():
     with pytest.raises(RuntimeError, match="no Pallas kernel route"):
-        runtime.interpret_kernels("tpu")
+        runtime.interpret_kernels("metal")
 
 
 def test_production_stack_is_the_gpu_default():
