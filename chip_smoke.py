@@ -56,6 +56,21 @@ from graph_framework_tpu.tools.make_splines import (  # noqa: E402
 STEPS, SUB_STEPS, DT = 100, 10, 1.0e-4   # tests/test_cli_e2e.py launch
 ENDPOINT_TOL = 2.0e-5                    # m, the CPU test's bound
 FRACTION_MIN = 0.999
+# Window kernel against the XLA frozen window, f32, per accumulation mode
+# (compensated?) and number of recorded steps: max|diff| / max|XLA| per
+# component.  Triton and XLA order operations and contract FMAs
+# differently.  Set from the H100's readings (PERF.md): plain 2.4e-6 after
+# one step and 3.4e-6 after 100, compensated 5.3e-7 and 1.1e-7.  The
+# compensated limits sit below what a plain accumulation reads, so a
+# kernel that dropped its low words fails them.
+KERNEL_TOL = {False: {1: 1.0e-5, STEPS: 1.0e-5},
+              True: {1: 1.0e-6, STEPS: 5.0e-7}}
+
+
+def check(ok, what):
+    """Fail the run; unlike ``assert``, also under ``python -O``."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
 
 
 def card_line():
@@ -149,9 +164,10 @@ def phase_main(tables, num_rays, seed, card):
 
     # the README's library path: Solver.trace keeps the trajectory
     final, traj = sol.trace(state, STEPS)
-    assert traj.x.shape == (STEPS + 1, state.x.shape[0]), traj.x.shape
-    assert rel_dev(jax.tree.map(lambda a: a[:num_rays], final), prod) \
-        < 1e-6, "Solver.trace differs from the stepped endpoint"
+    check(traj.x.shape == (STEPS + 1, state.x.shape[0]),
+          f"trajectory shape {traj.x.shape}")
+    check(rel_dev(jax.tree.map(lambda a: a[:num_rays], final), prod) < 1e-6,
+          "Solver.trace differs from the stepped endpoint")
     del traj
 
     for name, s, eq in (("production", prod, eq32),
@@ -160,12 +176,13 @@ def phase_main(tables, num_rays, seed, card):
         finite, inside = fractions(eq, s)
         print(f"[{name}] finite_fraction={finite:.6f} "
               f"in_domain_fraction={inside:.6f}")
-        assert finite >= FRACTION_MIN and inside >= FRACTION_MIN, name
+        check(finite >= FRACTION_MIN and inside >= FRACTION_MIN,
+              f"{name}: finite {finite}, in domain {inside}")
     dev_prod = endpoint_dev(prod, ref)
     dev_rk4 = endpoint_dev(rk4_32, ref)
     print(f"endpoint deviation from f64 rk4 [m]: production={dev_prod:.3e} "
           f"(limit {ENDPOINT_TOL:.1e}) rk4_f32={dev_rk4:.3e}")
-    assert dev_prod < ENDPOINT_TOL, dev_prod
+    check(dev_prod < ENDPOINT_TOL, f"production endpoint {dev_prod} m")
 
     compiled = sol.carry_step_fn().lower(sol.init_carry(state)).compile()
     print(f"production recorded step memory_analysis: "
@@ -173,32 +190,38 @@ def phase_main(tables, num_rays, seed, card):
     return eq32
 
 
+def kernel_vs_xla(eq32, state, steps, kernel_compensated,
+                  xla_compensated):
+    """rel_dev of the window kernel's endpoint from the XLA frozen
+    window's after ``steps`` recorded steps of the production stack, each
+    side with its own accumulation mode."""
+    def solver(comp, kernel):
+        return Solver(cold_plasma, eq32, dt=DT, sub_steps=SUB_STEPS,
+                      **dict(production_stack(SUB_STEPS), compensated=comp,
+                             pallas_window=kernel))
+    ker = solver(kernel_compensated, True)
+    padded, n = pad_rays(state, ker.pallas_block)
+    a = jax.tree.map(lambda v: v[:n], ker.run(padded, steps))
+    return rel_dev(a, solver(xla_compensated, False).run(state, steps))
+
+
 def phase_kernel(eq32, num_rays, seed, card):
     """The window kernel against the XLA frozen window it replaces."""
     state = init_k(launch(num_rays, seed, jnp.float32), cold_plasma, eq32,
                    "kx")
-    # f32 on both sides; operation order and FMA contraction differ
-    # between Triton and XLA, so the two agree to rounding after one
-    # window and drift apart at the f32 noise floor over 100
-    tol = {1: 1.0e-5, STEPS: 1.0e-4}
     print("window kernel vs XLA frozen window, f32: tolerance = max|diff| "
-          "/ max|XLA| per component; 1e-5 after one recorded step "
-          "(rounding of ~10 substeps), 1e-4 after 100 (the f32 noise "
-          "floor plain rk4 shows against f64)")
-    for comp in (False, True):
-        kw = dict(production_stack(SUB_STEPS), compensated=comp)
-        ker = Solver(cold_plasma, eq32, dt=DT, sub_steps=SUB_STEPS, **kw)
-        xla = Solver(cold_plasma, eq32, dt=DT, sub_steps=SUB_STEPS,
-                     **dict(kw, pallas_window=False))
-        padded, _ = pad_rays(state, ker.pallas_block)
+          "/ max|XLA| per component, per accumulation mode and recorded "
+          f"steps {KERNEL_TOL} (Triton and XLA order operations and "
+          "contract FMAs differently; the compensated limits sit below "
+          "what a plain accumulation reads)")
+    for comp, tol in KERNEL_TOL.items():
         for steps in tol:
-            a = jax.tree.map(lambda v: v[:num_rays], ker.run(padded, steps))
-            b = xla.run(state, steps)
-            dev = rel_dev(a, b)
+            dev = kernel_vs_xla(eq32, state, steps, comp, comp)
             print(f"[kernel vs xla] compensated={comp} recorded_steps="
                   f"{steps} rays={num_rays} rel_dev={dev:.3e} "
                   f"tol={tol[steps]:.0e} card={card}")
-            assert dev < tol[steps], (comp, steps, dev)
+            check(dev < tol[steps],
+                  f"kernel vs XLA, compensated={comp}, {steps} steps: {dev}")
 
 
 def phase_cli(tables, num_rays, card):
@@ -226,10 +249,12 @@ def phase_cli(tables, num_rays, card):
             power = np.stack([f.read_step(i, ["power"])["power"]
                               for i in range(nt)])
     for name in ("x", "kamp", "power", "d_power"):
-        assert name in names, name
-    assert nt == STEPS + 1 and power.shape[1] == num_rays, power.shape
-    assert np.all(np.isfinite(power)) and np.all(power <= 1.0 + 1e-6)
-    assert np.all(np.diff(power, axis=0) <= 1e-6), "power increases"
+        check(name in names, f"{name} missing from the result file")
+    check(nt == STEPS + 1 and power.shape[1] == num_rays,
+          f"power rows {power.shape}")
+    check(np.all(np.isfinite(power)) and np.all(power <= 1.0 + 1e-6),
+          "power not finite or above 1")
+    check(np.all(np.diff(power, axis=0) <= 1e-6), "power increases")
     print(f"[xrays cli] rays={num_rays} wall_s={wall:.3f} "
           f"timing={json.dumps(timing)} card={card}")
 
@@ -239,7 +264,7 @@ def phase_sharded(tables, num_rays, seed, card, num_devices):
         make_blocked_sharded_fn, ray_mesh, replicate, shard_rays)
 
     devices = jax.devices()[:num_devices]
-    assert len(devices) == num_devices, jax.devices()
+    check(len(devices) == num_devices, f"devices {jax.devices()}")
     mesh = ray_mesh(devices)
     eq = make_efit(tables, dtype=jnp.float32)
     sol = Solver(cold_plasma, eq, dt=DT, sub_steps=SUB_STEPS,
@@ -261,7 +286,7 @@ def phase_sharded(tables, num_rays, seed, card, num_devices):
           f"compile_and_run_s={t_compile:.3f} steps_s={t_steps:.3f} "
           f"ray_steps_per_s={n * STEPS * SUB_STEPS / t_steps:.6g} "
           f"card={card}")
-    assert len(homes) == num_devices, homes
+    check(len(homes) == num_devices, f"shards on {homes}")
 
     one = jax.device_put(state, devices[0])
     one = init_k(one, cold_plasma, eq, "kx")
@@ -270,7 +295,7 @@ def phase_sharded(tables, num_rays, seed, card, num_devices):
                   jax.tree.map(lambda a: a[:n], ref))
     print(f"[sharded vs one card] rel_dev={dev:.3e} (tol 1e-6: the same "
           "per-ray program)")
-    assert dev < 1e-6, dev
+    check(dev < 1e-6, f"sharded vs one card: {dev}")
 
 
 def main(argv=None):
@@ -310,7 +335,7 @@ def main(argv=None):
         if have_h5py:
             phase_cli(tables, args.cli_rays, card)
         count = 1
-    assert count == len(jax.devices()), (count, jax.devices())
+    check(count == len(jax.devices()), f"{count} vs {jax.devices()}")
     print(json.dumps({"ok": True, "device": {
         "platform": dev.platform, "kind": dev.device_kind,
         "count": len(jax.devices())}}))

@@ -171,7 +171,7 @@ def test_production_stack_endpoint_accuracy(tmp_path):
     prod = tmp_path / "prod.nc"
     run_xrays(tmp_path, *common, f"--output={prod}", "--solver=rk2",
               "--frozen_cells", "--freeze_every=10", "--compensated",
-              "--pallas_window", "--pallas_block=32", "--f32")
+              "--pallas_window", "--f32")
     ref = read_all(ref_out, ["x", "y", "z"])
     got = read_all(prod, ["x", "y", "z"])
     for k in ("x", "y", "z"):

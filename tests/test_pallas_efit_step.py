@@ -94,19 +94,6 @@ def test_solver_pallas_window_path(eq, state):
     assert _max_dev(outc, refc) < 1e-12
 
 
-def test_unrolled_window_matches_scan(eq, state):
-    """Solver(unroll_window=True) - the XLA window with its K substeps
-    unrolled, the kernel's second plain comparison form - equals the
-    scanned window."""
-    kw = dict(method="rk2", dt=1e-4, sub_steps=10, frozen_cells=True,
-              freeze_every=5, compensated=True)
-    ref = Solver(cold_plasma, eq, **kw).run(state, 2)
-    out = Solver(cold_plasma, eq, unroll_window=True, **kw).run(state, 2)
-    assert _max_dev(out, ref) < 1e-12
-    with pytest.raises(ValueError, match="frozen_cells"):
-        Solver(cold_plasma, eq, unroll_window=True)
-
-
 def test_solver_pallas_window_validation(eq):
     with pytest.raises(ValueError, match="frozen_cells"):
         Solver(cold_plasma, eq, method="rk2", pallas_window=True)

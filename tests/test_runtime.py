@@ -51,3 +51,17 @@ def test_chip_smoke_refuses_the_cpu(tmp_path):
                               timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_checks_survive_python_O():
+    """Every check of the smoke script raises through ``check``; a bare
+    ``assert`` would vanish under ``python -O`` and let a failed phase
+    print its result."""
+    import ast
+    import chip_smoke
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Assert)]
+    chip_smoke.check(True, "holds")
+    with pytest.raises(RuntimeError, match="check failed: broken"):
+        chip_smoke.check(False, "broken")

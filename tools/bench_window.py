@@ -7,8 +7,8 @@ for 100 recorded x 10 substeps from a Newton-initialised launch (the
 chip_smoke.py rays) with each window as
 
 * ``scan``: the XLA frozen window, one ``lax.scan`` step per substep;
-* ``unroll``: the same scan unrolled (``Solver(unroll_window=True)``), so
-  XLA may fuse a window into one kernel;
+* ``unroll``: the same window with its K substeps unrolled
+  (``unrolled_step`` below), so XLA may fuse a window into one kernel;
 * ``kernel<B>``: the Pallas/Triton window kernel with B rays per program.
 
 Each form is one jitted trace of all 100 recorded steps; its compile time
@@ -34,6 +34,10 @@ import numpy as np  # noqa: E402
 
 from graph_framework_tpu.models.dispersion import cold_plasma  # noqa: E402
 from graph_framework_tpu.models.efit import make_efit  # noqa: E402
+from graph_framework_tpu.models.rays import make_ray_rhs  # noqa: E402
+from graph_framework_tpu.ops.compensated import (  # noqa: E402
+    compensated_stepper)
+from graph_framework_tpu.ops.integrators import INCREMENTS  # noqa: E402
 from graph_framework_tpu.pallas.efit_step import pad_rays  # noqa: E402
 from graph_framework_tpu.runtime import enable_compile_cache  # noqa: E402
 from graph_framework_tpu.solver import (  # noqa: E402
@@ -43,8 +47,28 @@ from graph_framework_tpu.tools.make_splines import tokamak_tables  # noqa
 STEPS, SUB_STEPS, DT = 100, 10, 1.0e-4
 
 
-def trace_fn(sol):
-    step = sol.raw_step_fn()
+def unrolled_step(sol):
+    """The recorded step of a frozen, compensated ``sol`` with each freeze
+    window's K substeps written out, not scanned: the XLA frozen window
+    (Solver.raw_step_fn) as one straight-line program per window."""
+    def window(carry):
+        base = sol.carry_state(carry)
+        feq = sol.eq.freeze_cells(jnp.stack([base.x, base.y, base.z]))
+        rhs = make_ray_rhs(sol.dispersion, feq)
+        sub = compensated_stepper(
+            lambda s: INCREMENTS[sol.method](rhs, s, sol.dt))
+        for _ in range(sol.freeze_every):
+            carry = sub(carry)
+        return carry
+
+    def step(carry):
+        return jax.lax.scan(lambda c, _: (window(c), None), carry, None,
+                            length=sol.sub_steps // sol.freeze_every)[0]
+    return step
+
+
+def trace_fn(sol, unroll=False):
+    step = unrolled_step(sol) if unroll else sol.raw_step_fn()
 
     def go(carry):
         return jax.lax.scan(lambda c, _: (step(c), None), carry, None,
@@ -83,12 +107,12 @@ def main(argv=None):
             sol = Solver(cold_plasma, eq, dt=DT, sub_steps=SUB_STEPS,
                          **dict(production_stack(SUB_STEPS),
                                 pallas_window=form.startswith("kernel"),
-                                pallas_block=block,
-                                unroll_window=form == "unroll"))
+                                pallas_block=block))
             s0 = pad_rays(state, block)[0] if sol.pallas_window else state
             carry = sol.init_carry(s0)
             t0 = time.perf_counter()
-            compiled = trace_fn(sol).lower(carry).compile()
+            compiled = trace_fn(sol, form == "unroll").lower(
+                carry).compile()
             t_compile = time.perf_counter() - t0
             runs[form] = (sol, compiled, carry, t_compile)
         times, devs = {f: [] for f in forms}, {}
